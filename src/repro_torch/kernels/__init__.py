@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels of the port (``csrc/``), their build
+(:mod:`.build`), wrappers (:mod:`.cpm`, :mod:`.ops`) and plain PyTorch
+versions (:mod:`.ref`)."""

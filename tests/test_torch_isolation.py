@@ -1,0 +1,73 @@
+"""The port stands alone: importing it loads neither JAX nor any module of
+the JAX package, and an entry point called without ``device`` on a
+machine without a CUDA card raises instead of running on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def test_import_loads_neither_jax_nor_reference_package():
+    code = textwrap.dedent(
+        """
+        import sys
+        import repro_torch, repro_torch.core, repro_torch.online
+        import repro_torch.kernels.ops, repro_torch.interop
+        bad = sorted(
+            m for m in sys.modules
+            if m == "jax" or m.startswith("jax.")
+            or m == "repro" or m.startswith("repro.")
+        )
+        print(bad)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": SRC}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _instance():
+    from repro_torch.core import ProblemInstance, random_job
+
+    job = random_job(np.random.default_rng(0), None, n_tasks=5, rho=1.0)
+    return ProblemInstance(job=job, n_racks=3, n_wireless=1)
+
+
+def test_no_quiet_cpu_fallback():
+    from repro_torch.core.vectorized import (
+        batched_lower_bound,
+        make_batched_evaluator,
+        schedule_fleet,
+        vectorized_search,
+    )
+    from repro_torch.online import OnlineScheduler
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: device=None runs on it")
+    inst = _instance()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        schedule_fleet([inst])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vectorized_search(inst)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batched_lower_bound(inst, np.zeros((2, 5), np.int32), use_kernel=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batched_evaluator(inst)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OnlineScheduler(3, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        schedule_fleet([inst], device="cuda")
+    # Asked for by name, the CPU runs.
+    res = schedule_fleet([inst], batch_size=64, device="cpu")
+    assert np.isfinite(res.makespans).all()
