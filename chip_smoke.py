@@ -23,13 +23,29 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      same stream under ``topology="matching"``;
   4. profiles the offline fleet and a 20-job serve with torch.profiler
      (device time by kernel, busy share, kernel count);
+  5a. holds the flash and decode attention kernels against their plain
+     versions (2e-5 in float32, 4e-2 in bfloat16) at llama3.2-3b's heads,
+     ragged lengths, the reference tests' shapes and long caches, and
+     times kernel, plain version and PyTorch's
+     ``scaled_dot_product_attention`` (the yardstick; the port never
+     calls it);
+  5b. serves llama3.2-3b at its full widths with seed-0 bf16 weights: 4
+     requests of 512-token prompts through the prefill step, then the
+     serve loop decodes the prompts into the KV cache and generates 32
+     tokens; checks finite logits, prefill == decode at the last prompt
+     position, and that both attention kernels ran; then profiles a
+     prefill and a few decode steps;
+  5c. decodes a few steps of B = 8 over a 32,768-token cache filled from
+     the seed, beside the step's byte bound;
+  5d. holds the port on the card (kernels) against the port on the CPU
+     (plain versions) on the smoke configs: prefill and 8 decode steps;
 
 and prints the kernel table and, as its last line,
 ``{"ok": true, "device": {...}}``. Every check raises on failure. It
 exits non-zero, printing no result, when no card is available or when
-``src/repro_torch`` is missing. The launch counters are reset just before
-phase 2 and read just after phase 3: that is the main-path run whose
-launches the kernel table reports.
+``src/repro_torch`` is missing. Each main path reads its own launch
+counts: the scheduler's (phases 2 and 3) and the serving path's (phase
+5b), every count set to 0 just before and read just after.
 """
 
 from __future__ import annotations
@@ -43,11 +59,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM rate and float32
-# outside the tensor cores; the bound of a kernel is the larger of
-# bytes / HBM rate and operations / float32 rate.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM rate, float32
+# outside the tensor cores and bf16 on the tensor cores; the bound of a
+# kernel is the larger of bytes / HBM rate and operations / the rate of
+# their type.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # tests/test_admission.py GOLDEN["production_fleet"].
 GOLDEN_FLEET_ROWS = [
@@ -63,12 +81,27 @@ GOLDEN_FLEET_COUNTERS = dict(
 
 SERVE_JOBS = 200
 PROFILE_JOBS = 20
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/cpm.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {
+    "combined_lb": CSRC + "cpm.cu",
+    "combined_lb_masked": CSRC + "cpm.cu",
+    "critical_path": CSRC + "cpm.cu",
+    "flash_attention": CSRC + "flash_attention.cu",
+    "decode_attention": CSRC + "decode_attention.cu",
+}
 REPLACES = {
     "combined_lb": "src/repro/kernels/cpm.py:93",
     "combined_lb_masked": "src/repro/kernels/cpm.py:101",
     "critical_path": "src/repro/kernels/cpm.py:56",
+    "flash_attention": "src/repro/kernels/flash_attention.py:29",
+    "decode_attention": "src/repro/kernels/decode_attention.py:27",
 }
+
+# The serving cell: llama3.2-3b at its published widths.
+SERVE_ARCH = "llama3.2-3b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+LONG_BATCH, LONG_CACHE, LONG_STEPS = 8, 32768, 4
+ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 4e-2}
 
 
 def emit(tag: str, **fields) -> None:
@@ -178,6 +211,307 @@ def profile_run(label: str, fn, wall_unprofiled: float) -> None:
          top=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, count=e.count)
               for e in top])
 
+def _larger(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(torch, q, k, causal: bool) -> tuple[float, str]:
+    """q, k, v read once and out written once; 4 * H * D flops per
+    (query, key) pair, counting only the lower triangle when causal."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    nbytes = q.element_size() * (2 * B * S * H * D + 2 * B * T * KV * D)
+    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return _larger(nbytes, 4 * B * H * D * pairs, rate)
+
+
+def decode_bound(torch, q, k, lens: list[int]) -> tuple[float, str]:
+    """q read and out written once, and only the kv_len valid cache rows
+    of K and V (a row of length <= 0 attends to all T rows)."""
+    B, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rows = sum(T if n <= 0 else min(n, T) for n in lens)
+    nbytes = q.element_size() * (2 * B * H * D + 2 * rows * KV * D) + 4 * B
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return _larger(nbytes, 4 * H * D * rows, rate)
+
+
+def library_ms(torch, fn):
+    """ms of one PyTorch call used as a yardstick (never by the port), or
+    None with the reason when this build of PyTorch refuses it."""
+    try:
+        return cuda_ms(torch, fn, reps=10, warmup=2), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
+def stage2_bound_ms(torch, instances, batch_size: int) -> float:
+    """Least ms of one stage-2 launch by bytes: the candidate block
+    (int64 [B, n_pad]) and row instance ids (int64 [B]) read once, the op
+    tables of ``_build_eval_stack`` read once, the makespans (f32 [B])
+    written once."""
+    from repro_torch.core.simulator import build_op_tables
+    from repro_torch.core.vectorized import _build_eval_stack, _fleet_dims
+
+    tables = [build_op_tables(inst) for inst in instances]
+    dims = _fleet_dims(instances, True, tables)
+    stack = _build_eval_stack(instances, dims, True, torch.device("cpu"), tables)
+    B = len(instances) * batch_size
+    nbytes = B * dims.n_pad * 8 + B * 8 + sum(t.nbytes for t in stack) + B * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def attention_kernels(np, torch) -> dict:
+    """5a. Both attention kernels against their plain versions, timed
+    beside the plain version, SDPA and the bound. Returns the kernel-table
+    rows, measured at the shapes the serving path gives the kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, max_err = {}, {"flash_attention": 0.0, "decode_attention": 0.0}
+
+    def record(name, label, err, kern, plain, lib, b, **shape):
+        ms = cuda_ms(torch, kern)
+        plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+        lib_ms, lib_err = library_ms(torch, lib)
+        max_err[name] = max(max_err[name], err)
+        emit("attention", kernel=name, shape=label, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, library_error=lib_err,
+             bound_ms=b[0], bound_by=b[1], **shape)
+        if label.startswith("serve"):
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b[0], bound_by=b[1])
+
+    flash = [("serve_prefill", 4, 512, 24, 8, 128, True, bf16)]
+    for dt in (bf16, f32):
+        flash += [(f"llama_S{S}", 1, S, 24, 8, 128, c, dt)
+                  for S in (2048, 1000) for c in (True, False)]
+        flash += [("test_kernels", *sh, dt) for sh in (
+            (1, 256, 4, 4, 128, True), (2, 128, 8, 2, 64, True),
+            (1, 512, 8, 8, 128, False), (1, 128, 4, 1, 128, True),
+            (2, 256, 16, 4, 64, True))]
+    for label, B, S, H, KV, D, causal, dt in flash:
+        q, k, v = rn((B, S, H, D), dt), rn((B, S, KV, D), dt), rn((B, S, KV, D), dt)
+        got = attention.flash_attention(q, k, v, causal)
+        want = ref.ref_flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[str(dt)]
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"flash_attention != plain at {label} {(B, S, H, KV, D, causal, dt)}: {err}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        record("flash_attention", label, err,
+               lambda: attention.flash_attention(q, k, v, causal),
+               lambda: ref.ref_flash_attention(q, k, v, causal),
+               lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True),
+               flash_bound(torch, q, k, causal),
+               B=B, S=S, H=H, KV=KV, D=D, causal=causal, dtype=str(dt))
+        del q, k, v, qt, kt, vt, got, want
+    torch.cuda.empty_cache()
+
+    serve_len = SERVE_PROMPT + SERVE_GEN
+    decode = [("serve_decode", 4, 24, 8, 128, serve_len + 1, [serve_len] * 4, bf16)]
+    for dt in (bf16, f32):
+        decode += [
+            ("B8_T4096", 8, 24, 8, 128, 4096, [1, 4096, 2048, 100, 4095, 3000, 17, 1234], dt),
+            ("B8_T32768", 8, 24, 8, 128, 32768,
+             [1, 32768, 16384, 100, 32767, 30000, 17, 20000], dt),
+        ]
+    decode += [("test_kernels", B, H, KV, D, T, [n] * B, f32) for B, H, KV, D, T, n in (
+        (2, 8, 2, 128, 1024, 700), (1, 4, 4, 64, 512, 512),
+        (3, 8, 8, 128, 2048, 1), (2, 16, 2, 64, 4096, 3000))]
+    for label, B, H, KV, D, T, lens, dt in decode:
+        q, k, v = rn((B, H, D), dt), rn((B, T, KV, D), dt), rn((B, T, KV, D), dt)
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = attention.decode_attention(q, k, v, kl)
+        want = ref.ref_decode_attention(q, k, v, kl)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[str(dt)]
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"decode_attention != plain at {label} {(B, H, KV, D, T, lens, dt)}: {err}")
+        q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(T, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+        record("decode_attention", label, err,
+               lambda: attention.decode_attention(q, k, v, kl),
+               lambda: ref.ref_decode_attention(q, k, v, kl),
+               lambda: F.scaled_dot_product_attention(
+                   q4, kt, vt, attn_mask=mask, enable_gqa=True),
+               decode_bound(torch, q, k, lens),
+               B=B, H=H, KV=KV, D=D, T=T, kv_len=lens, dtype=str(dt))
+        del q, k, v, q4, kt, vt, got, want, mask
+    torch.cuda.empty_cache()
+    for name in rows:
+        rows[name]["max_abs_err"] = max_err[name]
+    return rows
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def serving_phases(np, torch) -> dict:
+    """5b full-width serve (the serving main path; returns its attention
+    launch counts), its profile, and 5c long-cache decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention, cpm
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models.lm import build_model, count_params
+    from repro_torch.runtime.steps import build_prefill_step, build_serve_step
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = model.init(0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = count_params(params)
+    weight_bytes = 2 * n_params
+    kv_row_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2  # K and V, bf16
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+
+    # -- 5b. the serving main path: every count to 0 just before -----------
+    for counts in (cpm.launches, attention.launches):
+        for k in counts:
+            counts[k] = 0
+    res = serve_model(model, params, prompts, SERVE_GEN)
+    launches = dict(attention.launches)
+    check(res.all_finite, "full-width serve: a logit is not finite")
+    tol = max(0.05, 0.02 * cfg.n_layers)  # tests/test_models.py:113
+    a, b = res.prompt_logits.float(), res.prefill_logits.float()
+    err = float((a - b).abs().max())
+    check(torch.allclose(a, b, atol=tol, rtol=tol),
+          f"prefill != decode at the last prompt position (err {err}, tol {tol})")
+    for name in ("flash_attention", "decode_attention"):
+        check(launches[name] > 0, f"the serving path never launched {name}")
+    # Bounds: decode reads every weight and the valid cache rows once;
+    # prefill does 2 flops per weight of the layers per token plus the
+    # causal attention, and reads the weights once.
+    layer_params = n_params - cfg.vocab_size * cfg.d_model
+    mean_len = SERVE_PROMPT + 1 + SERVE_GEN / 2
+    step_bound = 1e3 * (weight_bytes + SERVE_BATCH * mean_len * kv_row_bytes) / HBM_BYTES_PER_S
+    n_tok = SERVE_BATCH * SERVE_PROMPT
+    attn_flops = (4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * SERVE_BATCH
+                  * SERVE_PROMPT * (SERVE_PROMPT + 1) / 2)
+    prefill_flops = (2 * layer_params * n_tok + attn_flops
+                     + 2 * cfg.vocab_size * cfg.d_model * SERVE_BATCH)
+    prefill_bound = _larger(weight_bytes, prefill_flops, BF16_OPS_PER_S)
+    emit("serve_full_width", arch=cfg.name, params=n_params, weight_bytes=weight_bytes,
+         init_s=init_s, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+         prefill_s=res.prefill_s, prefill_tok_s=res.prefill_tok_s,
+         prefill_bound_ms=prefill_bound[0], prefill_bound_by=prefill_bound[1],
+         prompt_decode_s=res.prompt_s, prompt_decode_tok_s=res.prompt_tok_s,
+         decode_tok_s=res.decode_tok_s, ms_per_decode_step=res.ms_per_step,
+         decode_step_bound_ms=step_bound, peak_gib=res.peak_bytes / 2**30,
+         prefill_vs_decode_max_abs_err=err, tol=tol, launches=launches,
+         first_tokens=res.tokens[0, :8].tolist())
+    del res
+
+    # Where the device time goes: one prefill and 8 decode steps.
+    prefill = build_prefill_step(model)
+    step = build_serve_step(model)
+
+    def run_prefill():
+        return prefill(params, {"tokens": prompts})
+
+    def run_decode():
+        cache = model.init_cache(SERVE_BATCH, 9, device="cuda")
+        for i in range(8):
+            _, cache = step(params, cache, prompts[:, i])
+
+    for label, fn in (("serve_prefill", run_prefill), ("serve_decode_8_steps", run_decode)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        profile_run(label, fn, time.perf_counter() - t)
+
+    # -- 5c. long-cache decode ----------------------------------------------
+    cache = model.init_cache(LONG_BATCH, LONG_CACHE + LONG_STEPS + 1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for layer in cache["layers"]:
+        for key in ("k", "v"):
+            for r in range(layer[key].shape[0]):
+                rows = layer[key][r, :, :LONG_CACHE]
+                rows.copy_(torch.randn(rows.shape, generator=gen, device="cuda"))
+    cache["pos"] = LONG_CACHE
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, LONG_BATCH)).cuda()
+    before = dict(attention.launches)
+    logits, cache = step(params, cache, tok)  # first step at this shape
+    finite = torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(LONG_STEPS):
+        logits, cache = step(params, cache, logits[:, 0].argmax(dim=-1))
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / LONG_STEPS
+    check(bool(finite), "long-cache decode: a logit is not finite")
+    mean_len = LONG_CACHE + 1 + (LONG_STEPS + 1) / 2  # kv_len of the timed steps
+    cache_bytes = LONG_BATCH * mean_len * kv_row_bytes
+    emit("long_cache_decode", batch=LONG_BATCH, cache_len=LONG_CACHE, steps=LONG_STEPS,
+         ms_per_step=ms, bound_ms=1e3 * (weight_bytes + cache_bytes) / HBM_BYTES_PER_S,
+         weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+         decode_tok_s=LONG_BATCH / ms * 1e3,
+         decode_launches=attention.launches["decode_attention"] - before["decode_attention"])
+    del cache, params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def card_equals_cpu(np, torch) -> None:
+    """5d. The port on the card (kernels) against the port on the CPU (plain
+    versions), same weights: prefill and 8 decode steps of two smoke configs."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import attention
+    from repro_torch.models.lm import build_model
+    from repro_torch.runtime.steps import build_prefill_step, build_serve_step
+
+    for arch in ("llama3.2-3b", "qwen1.5-4b"):
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        cpu = model.init(0, device="cpu", dtype=torch.bfloat16)
+        gpu = _tree_to(cpu, "cuda")
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 8)))
+        prefill, step = build_prefill_step(model), build_serve_step(model)
+        tol = max(0.05, 0.02 * cfg.n_layers)
+        before = dict(attention.launches)
+        pg = prefill(gpu, {"tokens": prompts.cuda()}).cpu().float()
+        pc = prefill(cpu, {"tokens": prompts}).float()
+        check(torch.allclose(pg, pc, atol=tol, rtol=tol), f"{arch}: card != CPU in prefill")
+        errs = [float((pg - pc).abs().max())]
+        cg = model.init_cache(2, 9, device="cuda")
+        cc = model.init_cache(2, 9, device="cpu")
+        for i in range(8):
+            lg, cg = step(gpu, cg, prompts[:, i].cuda())
+            lc, cc = step(cpu, cc, prompts[:, i])
+            check(torch.allclose(lg.cpu().float(), lc.float(), atol=tol, rtol=tol),
+                  f"{arch}: card != CPU at decode step {i}")
+            errs.append(float((lg.cpu().float() - lc.float()).abs().max()))
+        launched = {k: attention.launches[k] - before[k] for k in before}
+        check(all(n > 0 for n in launched.values()), f"{arch}: card side skipped a kernel")
+        emit("card_equals_cpu_model", arch=arch, prefill_max_abs_err=errs[0],
+             decode_max_abs_err=max(errs[1:]), tol=tol, kernel_launches=launched)
+
 
 def main() -> int:
     import torch
@@ -205,10 +539,15 @@ def main() -> int:
     emit("versions", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
 
-    # -- 0. build -------------------------------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 0. build: one nvcc per source, all started together --------------------
     t0 = time.perf_counter()
-    build.load_cpm()
-    ptxas = [ln.strip() for ln in build.build_log().splitlines() if "Used" in ln]
+    build.build_all()
+    ptxas = {name: [ln.strip() for ln in build.build_log(src).splitlines()
+                    if "Used" in ln or "spill" in ln]
+             for name, src in build.SOURCES.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     # -- 1. kernels against their plain versions ------------------------------
@@ -284,6 +623,7 @@ def main() -> int:
              stage1_ms_per_launch=1e3 * float(np.mean(s1)) if s1 else None,
              stage2_ms_per_launch=1e3 * float(np.mean(s2)) if s2 else None,
              stage2_rows=8192 * len(instances),
+             stage2_bound_ms=stage2_bound_ms(torch, instances, 8192),
              kernel_launches={k: cpm.launches[k] - before[k] for k in before},
              makespans=[float(m) for m in fleet.makespans])
         for inst, res in zip(instances, fleet.results):
@@ -395,13 +735,23 @@ def main() -> int:
     torch.cuda.synchronize()
     profile_run(f"serve_{PROFILE_JOBS}_jobs", serve_short, time.perf_counter() - t)
 
+    for name in table:
+        table[name].update(launches=main_launches[name], max_abs_err=max_err[name],
+                           library_ms=None)
+
+    # -- 5. the serving path: llama3.2-3b on the attention kernels ------------
+    table.update(attention_kernels(np, torch))
+    serve_launches = serving_phases(np, torch)
+    for name in ("flash_attention", "decode_attention"):
+        table[name]["launches"] = serve_launches[name]
+    card_equals_cpu(np, torch)
+
     kernels = [
-        dict(name=name, route="cuda", source=KERNEL_SOURCE,
-             replaces=REPLACES[name], launches=main_launches[name],
-             max_abs_err=max_err[name], ms=table[name]["ms"],
-             plain_ms=table[name]["plain_ms"], bound_ms=table[name]["bound_ms"],
-             bound_by=table[name]["bound_by"], library_ms=None)
-        for name in ("combined_lb", "combined_lb_masked", "critical_path")
+        dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+             **{k: table[name][k] for k in (
+                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")})
+        for name in SOURCE
     ]
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

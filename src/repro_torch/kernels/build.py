@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (nvcc into a shared library,
 bound with ctypes).
 
-``load_cpm()`` compiles ``csrc/cpm.cu`` for ``sm_90a`` at first use into
+Each source under ``csrc/`` becomes its own library. ``load(name)``
+compiles ``csrc/<name>.cu`` for ``sm_90a`` at first use into
 ``build/repro_torch/`` under the checkout root, keyed on a hash of the
 source so an edit rebuilds it, and returns the loaded library with its
-argument types set. Nothing is built at import time: this module is
-imported on machines without ``nvcc``.
+argument types set. ``build_all()`` starts one ``nvcc`` per source at
+once and waits for all of them. Nothing is built at import time: this
+module is imported on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,11 +20,52 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CPM_SOURCE", "build_log", "load_cpm"]
+__all__ = [
+    "BUILD_DIR",
+    "CPM_SOURCE",
+    "SOURCES",
+    "build_all",
+    "build_log",
+    "load",
+    "load_cpm",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 CPM_SOURCE = CSRC / "cpm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+_ptr, _i32, _i64p, _f32 = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+)
+
+# Library name -> {C function: argtypes}. Every function returns the
+# cudaError_t of its launch as an int.
+SIGNATURES: dict[str, dict[str, list]] = {
+    "cpm": {
+        "cpm_combined_lb": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr],
+        "cpm_combined_lb_masked": [
+            _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr,
+        ],
+        "cpm_critical_path": [_ptr, _ptr, _i32, _i32, _i32, _ptr],
+    },
+    "flash_attention": {
+        # dtype, q, k, v, out, strides[12], B, S, T, H, KV, D, causal, scale, stream
+        "flash_attention_fwd": [
+            _i32, _ptr, _ptr, _ptr, _ptr, _i64p,
+            _i32, _i32, _i32, _i32, _i32, _i32, _i32, _f32, _ptr,
+        ],
+    },
+    "decode_attention": {
+        # dtype, q, k, v, kv_len, out, part_ml, part_acc, strides[8],
+        # B, T, H, KV, D, scale, stream
+        "decode_attention_fwd": [
+            _i32, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i64p,
+            _i32, _i32, _i32, _i32, _i32, _f32, _ptr,
+        ],
+        "decode_attention_chunks": [_i32],
+    },
+}
+SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -31,7 +74,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_libs: dict[Path, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -57,48 +100,78 @@ def build_log(source: Path = CPM_SOURCE) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def _build(source: Path) -> Path:
+def _start(source: Path):
+    """Start nvcc for ``source`` unless its library exists; returns
+    (library path, temp path, command, process or None)."""
     lib = _library_path(source)
     if lib.exists():
-        return lib
+        return lib, None, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+    return lib, tmp, cmd, proc
+
+
+def _finish(source: Path, lib: Path, tmp, cmd, proc) -> Path:
+    if proc is None:
+        return lib
+    out, err = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {source.name}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}"
+            f"{' '.join(cmd)}\n{err}"
         )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".log").write_text(out + err)
     os.replace(tmp, lib)  # atomic: concurrent builders never see a partial .so
     return lib
 
 
-def load_cpm() -> ctypes.CDLL:
-    """The cpm kernel library, built and loaded on first use; later calls
-    return the loaded library without touching the disk (a source edit
-    takes effect in the next process)."""
-    lib = _libs.get(CPM_SOURCE)
+def _open(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` (a key of :data:`SOURCES`), built and
+    loaded on first use; later calls return the loaded library without
+    touching the disk (a source edit takes effect in the next process)."""
+    lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
-        lib = _libs.get(CPM_SOURCE)
+        lib = _libs.get(name)
         if lib is None:
-            path = _build(CPM_SOURCE)
-            lib = ctypes.CDLL(str(path))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.cpm_combined_lb.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-            lib.cpm_combined_lb_masked.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
-            ]
-            lib.cpm_critical_path.argtypes = [ptr, ptr, i32, i32, i32, ptr]
-            for fn in (
-                lib.cpm_combined_lb,
-                lib.cpm_combined_lb_masked,
-                lib.cpm_critical_path,
-            ):
-                fn.restype = ctypes.c_int
-            _libs[CPM_SOURCE] = lib
+            source = SOURCES[name]
+            lib = _open(name, _finish(source, *_start(source)))
+            _libs[name] = lib
         return lib
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Build every library not yet loaded, one nvcc per source, all
+    started together; returns the loaded libraries by name."""
+    with _lock:
+        todo = [n for n in SOURCES if n not in _libs]
+        started = [(n, _start(SOURCES[n])) for n in todo]
+        errors = []
+        for n, job in started:
+            try:
+                _libs[n] = _open(n, _finish(SOURCES[n], *job))
+            except RuntimeError as e:  # wait for the other builds first
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return dict(_libs)
+
+
+def load_cpm() -> ctypes.CDLL:
+    """The cpm kernel library (see :func:`load`)."""
+    return load("cpm")

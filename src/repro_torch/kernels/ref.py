@@ -1,18 +1,35 @@
-"""Plain PyTorch versions of the cpm kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Twins of ``ref_critical_path`` / ``ref_combined_lb`` of the JAX package,
-written in float32 with the kernel's own round loop, non-finite mapping
-and association, so that they equal the CUDA kernel (and the Pallas
-kernel) bit for bit. The CPU route of :mod:`repro_torch.kernels.cpm` and
-the tests use them; ``chip_smoke.py`` holds the kernel against them on
-the card.
+``ref_critical_path`` / ``ref_combined_lb`` are twins of the JAX
+package's oracles, written in float32 with the kernel's own round loop,
+non-finite mapping and association, so that they equal the CUDA kernel
+(and the Pallas kernel) bit for bit.
+
+``ref_flash_attention`` / ``ref_decode_attention`` are twins of the JAX
+package's attention oracles (``src/repro/kernels/ref.py``): float32
+scores, masked scores at -1e30, a full softmax, the output cast to q's
+type. The kernels reorder the sums (online softmax), so they agree with
+these within 2e-5 in float32 and 4e-2 in bfloat16.
+
+The CPU routes of :mod:`repro_torch.kernels.cpm` and
+:mod:`repro_torch.kernels.attention` and the tests use them;
+``chip_smoke.py`` holds the kernels against them on the card.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["NEG_INF", "clamp_iters", "ref_critical_path", "ref_combined_lb"]
+__all__ = [
+    "NEG_INF",
+    "clamp_iters",
+    "ref_critical_path",
+    "ref_combined_lb",
+    "ref_flash_attention",
+    "ref_decode_attention",
+]
 
 NEG_INF = -1e30
 
@@ -60,3 +77,43 @@ def ref_combined_lb(
     lb = (dist + p.to(torch.float32)).amax(dim=1)
     extra = _finite(extra.to(torch.float32).reshape(-1))
     return torch.maximum(lb, extra)
+
+
+def ref_flash_attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, T, KV, D]
+    v: torch.Tensor,  # [B, T, KV, D]
+    causal: bool = True,
+) -> torch.Tensor:
+    """GQA attention, query s attending to keys t <= s when causal."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, D).to(torch.float32)
+    s = torch.einsum("bskgd,btkd->bskgt", qg, k.to(torch.float32)) / math.sqrt(D)
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(
+            T, device=q.device
+        )[None, :]
+        s = torch.where(mask[None, :, None, None, :], s, s.new_tensor(NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bskgt,btkd->bskgd", p, v.to(torch.float32))
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def ref_decode_attention(
+    q: torch.Tensor,       # [B, H, D]
+    k: torch.Tensor,       # [B, T, KV, D]
+    v: torch.Tensor,       # [B, T, KV, D]
+    kv_len: torch.Tensor,  # [] or [B] valid cache length
+) -> torch.Tensor:
+    """One query token per row over the first ``kv_len[b]`` cache rows."""
+    B, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, D).to(torch.float32)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(torch.float32)) / math.sqrt(D)
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
+    valid = torch.arange(T, device=q.device)[None, :] < kv_len.reshape(-1, 1)
+    s = torch.where(valid[:, None, None, :], s, s.new_tensor(NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v.to(torch.float32))
+    return o.reshape(B, H, D).to(q.dtype)

@@ -21,6 +21,10 @@ def test_import_loads_neither_jax_nor_reference_package():
         import sys
         import repro_torch, repro_torch.core, repro_torch.online
         import repro_torch.kernels.ops, repro_torch.interop
+        import repro_torch.models, repro_torch.models.lm, repro_torch.configs
+        import repro_torch.runtime.steps, repro_torch.launch.serve
+        import repro_torch.kernels.attention
+        repro_torch.configs.get_config("llama3.2-3b")
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.")
@@ -71,3 +75,36 @@ def test_no_quiet_cpu_fallback():
     # Asked for by name, the CPU runs.
     res = schedule_fleet([inst], batch_size=64, device="cpu")
     assert np.isfinite(res.makespans).all()
+
+
+def test_model_stack_has_no_quiet_cpu_fallback():
+    from repro_torch.configs import smoke_config
+    from repro_torch.interop import lm_cache_from_arrays, lm_params_from_arrays
+    from repro_torch.kernels import attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import build_model
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: device=None runs on it")
+    model = build_model(smoke_config("llama3.2-3b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(batch=1, prompt=2, gen=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_arrays({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_cache_from_arrays({"pos": np.int32(0), "layers": ()})
+    # The attention wrappers launch a kernel only for a CUDA tensor; a CPU
+    # tensor, asked for by name, takes the plain version and counts nothing.
+    before = dict(attention.launches)
+    q = torch.zeros((1, 3, 4, 16))
+    k = torch.zeros((1, 3, 2, 16))
+    assert attention.flash_attention(q, k, k).shape == (1, 3, 4, 16)
+    assert attention.decode_attention(q[:, 0], k, k, 2).shape == (1, 4, 16)
+    assert attention.launches == before
+    # Asked for by name, the CPU runs.
+    params = model.init(0, device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
