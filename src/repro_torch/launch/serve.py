@@ -7,7 +7,10 @@
 It builds the model with random weights from ``--seed``, held in bf16
 from load time, runs the production prefill step on the prompts, then
 decodes the prompts into the KV cache through the serve step and
-generates greedily, and prints tokens/s. It runs on the CUDA card; a CPU
+generates greedily, and prints tokens/s. As in the JAX launcher, the
+prompts reach the cache through the decode loop, so the first token
+waits for the prompt decode; the prefill step fills no cache, and its
+last-position logits check the decode loop's. It runs on the CUDA card; a CPU
 run must be asked for with ``--device cpu``. ``--smoke`` (the default)
 serves the reduced config; ``--no-smoke`` the published widths.
 """
@@ -50,6 +53,14 @@ class ServeResult:
     @property
     def prompt_tok_s(self) -> float:
         return self.batch * self.prompt_len / self.prompt_s
+
+    @property
+    def first_token_s(self) -> float:
+        """Time to the first generated token: on this path the prompts are
+        decoded into the cache one serve step at a time, and the first
+        token is the argmax of the last of those steps. The prefill step
+        fills no cache; its logits only check the decode loop's."""
+        return self.prompt_s
 
     @property
     def decode_tok_s(self) -> float:
@@ -159,7 +170,7 @@ def main(argv: list[str] | None = None) -> ServeResult:
     B, P = res.batch, res.prompt_len
     print(f"prefill {B}x{P} tokens: {res.prefill_s:.4f} s ({res.prefill_tok_s:.1f} tok/s)")
     print(f"decoded {B}x{P} prompt tokens: {res.prompt_s:.4f} s "
-          f"({res.prompt_tok_s:.1f} tok/s)")
+          f"({res.prompt_tok_s:.1f} tok/s; the time to the first token)")
     print(f"generated {B}x{res.gen} tokens ({res.decode_tok_s:.1f} tok/s, "
           f"{res.ms_per_step:.3f} ms/step)")
     if res.peak_bytes is not None:

@@ -27,14 +27,12 @@ def flash_attention(
     k: torch.Tensor,  # [B, T, KV, D]
     v: torch.Tensor,  # [B, T, KV, D]
     causal: bool = True,
-    block_kv: int = 512,
 ) -> torch.Tensor:
-    """GQA attention [B, S, H, D] in q's type. ``block_kv`` is accepted for
-    signature parity with the JAX package."""
+    """GQA attention [B, S, H, D] in q's type."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention has no backward pass yet: it belongs to the "
             "training slice of the port (ROADMAP Queue 1 item 8); call it "
             "under torch.no_grad() or torch.inference_mode()"
         )
-    return ops.flash_attention(q, k, v, causal=causal, block_kv=block_kv)
+    return ops.flash_attention(q, k, v, causal=causal)

@@ -8,10 +8,13 @@ Conventions kept from the JAX package:
     package's: ``rms_norm`` sums in fp32 and rounds only the inverse RMS,
     ``apply_rope`` works in fp32 and casts back, ``linear`` casts the
     weight to the activation's type.
-  * The inner attention is the port's kernels: prefill (S > 1) goes
-    through :func:`repro_torch.models.flash.flash_attention`, decode
-    through :func:`repro_torch.kernels.ops.decode_attention`. Neither
-    repeats the KV heads: the kernels fold the G group heads themselves.
+  * The inner attention is the port's kernels: a whole sequence (any S,
+    one token included) goes through
+    :func:`repro_torch.models.flash.flash_attention`, decode through
+    :func:`repro_torch.kernels.ops.decode_attention`. Neither repeats the
+    KV heads: the kernels fold the G group heads themselves. The JAX
+    package's plain ``_sdpa`` has no counterpart: the flash kernel takes
+    its one-token case and the decode kernel its ``kv_len`` case.
 
 The JAX package's ``shard`` / ``activation_sharding`` hooks do nothing
 without a mesh; on one card they have no counterpart here.
@@ -139,32 +142,6 @@ def init_attention(
     }
 
 
-def _sdpa(
-    q: torch.Tensor,  # [B, S, H, D]
-    k: torch.Tensor,  # [B, T, KV, D]
-    v: torch.Tensor,  # [B, T, KV, D]
-    causal: bool,
-) -> torch.Tensor:
-    """Grouped scaled-dot-product attention, fp32 softmax, in plain
-    PyTorch with the JAX package's rounding (``layers.py:188``): the
-    scores come out of the product in the compute dtype, the softmax
-    weights are cast to v's type before the second product. Only a
-    one-token sequence takes it; the JAX package's ``kv_len`` path is the
-    decode kernel here."""
-    B, S, H, D = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    qg = q.reshape(B, S, KV, H // KV, D)
-    scale = 1.0 / math.sqrt(D)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) * scale
-    if causal:
-        qi = torch.arange(S, device=q.device)[:, None]
-        ki = torch.arange(T, device=q.device)[None, :]
-        logits = logits.masked_fill(~(qi >= ki), float("-inf"))
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(B, S, H, D)
-
-
 def attention(
     params: Params,
     x: torch.Tensor,        # [B, S, d_model]
@@ -183,10 +160,7 @@ def attention(
     v = linear(params["wv"], x).reshape(B, S, n_kv_heads, head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if S > 1:
-        out = flash_attention(q, k, v, causal)
-    else:
-        out = _sdpa(q, k, v, causal=causal)
+    out = flash_attention(q, k, v, causal)
     return linear(params["wo"], out.reshape(B, S, n_heads * head_dim))
 
 

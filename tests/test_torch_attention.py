@@ -143,12 +143,21 @@ def test_wrappers_reject_bad_inputs():
 @pytest.mark.cuda
 def test_cuda_attention_kernels_match_plain_versions_on_card():
     """On a card: both kernels against their plain versions at the stated
-    tolerances, with ragged S and T, GQA and MQA, per-row lengths."""
+    tolerances (elementwise and per output row), with ragged S and T, GQA
+    and MQA, per-row lengths."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the CPU route is covered above)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 4e-2)):
+
+    def close(got, want, tol, row_tol):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        # Each output row within row_tol of its own norm: randn inputs give
+        # outputs of 0.01-0.05, about the size of the elementwise bf16 bar.
+        d = (got.float() - want.float()).norm(dim=-1)
+        assert float((d / want.float().norm(dim=-1)).max()) <= row_tol
+
+    for dtype, tol, row_tol in ((torch.float32, 2e-5, 2e-5), (torch.bfloat16, 4e-2, 1e-2)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -160,8 +169,7 @@ def test_cuda_attention_kernels_match_plain_versions_on_card():
             before = attention.launches["flash_attention"]
             got = tops.flash_attention(q, k, v, causal)
             assert attention.launches["flash_attention"] == before + 1
-            want = ref.ref_flash_attention(q, k, v, causal)
-            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+            close(got, ref.ref_flash_attention(q, k, v, causal), tol, row_tol)
         for B, H, KV, D, T, lens in [
             (4, 24, 8, 128, 545, [544, 1, 300, 129]), (2, 16, 2, 64, 4096, [3000, 0]),
             (2, 4, 1, 16, 40, [17, 40]),
@@ -169,5 +177,4 @@ def test_cuda_attention_kernels_match_plain_versions_on_card():
             q, k, v = rn(B, H, D), rn(B, T, KV, D), rn(B, T, KV, D)
             kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
             got = tops.decode_attention(q, k, v, kl)
-            want = ref.ref_decode_attention(q, k, v, kl)
-            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+            close(got, ref.ref_decode_attention(q, k, v, kl), tol, row_tol)

@@ -170,10 +170,14 @@ def test_forward_prefill_decode_match_reference(arch, jdtype):
             dt, ct = tm.decode_step(pt, ct, tt[:, s])
             _close(dt, dj, tol)
         assert ct["pos"] == int(cj["pos"]) == S
-        if jdtype == jnp.float32:  # the same rows went into the bf16 caches
+        if jdtype == jnp.float32:
+            # The same f32 rows went into the bf16 caches. The two
+            # frameworks' f32 products sum in different orders, so a value
+            # may round to the neighbouring bf16 number (one step: rtol
+            # 2**-7), and a value that cancels to near 0 keeps f32 noise.
             for a, b in zip(lm_tree_to_arrays(ct["layers"]), jax.tree.map(np.asarray, cj["layers"])):
-                _close(a["k"], b["k"], 1e-2)
-                _close(a["v"], b["v"], 1e-2)
+                for key in ("k", "v"):
+                    np.testing.assert_allclose(_np(a[key]), _np(b[key]), rtol=2**-7, atol=1e-6)
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_3b", "phi3_mini_3_8b"])
