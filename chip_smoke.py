@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA card:
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/``, then:
 
-  0. prints the card's name and power limit, the torch and CUDA versions
-     and the build time;
+  0. prints the card's name and power limit, the torch and CUDA versions,
+     the build time, and the registers, spills and shared memory of each
+     bf16 flash instantiation;
   1. holds every kernel entry point against its plain PyTorch version on
      the card (tolerance 0: ``torch.equal``) at the offline main-path
      shape, the serving shape and ragged shapes, and times both with CUDA
@@ -26,10 +27,13 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
   5a. holds the flash and decode attention kernels against their plain
      versions (2e-5 in float32, 4e-2 in bfloat16 elementwise, and each
      output row within 2e-5 / 1e-2 of its own norm) at llama3.2-3b's heads,
-     ragged lengths, the reference tests' shapes and long caches, and
-     times kernel, plain version and PyTorch's
-     ``scaled_dot_product_attention`` (the yardstick; the port never
-     calls it);
+     phi3-mini's (D 96) and seamless-m4t-medium's (D 64), ragged lengths,
+     the reference tests' shapes and long caches, and times kernel, plain
+     version and PyTorch's ``scaled_dot_product_attention`` (the
+     yardstick; the port never calls it); a flash row also gives its
+     TFLOP/s, share of its bound and the host time of one wrapper call,
+     and in bf16 the device times alone (CUDA graphs of the calls) of
+     kernel and SDPA;
   5b. serves llama3.2-3b at its full widths with seed-0 bf16 weights: 4
      requests of 512-token prompts through the prefill step, then the
      serve loop decodes the prompts into the KV cache and generates 32
@@ -42,7 +46,12 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      (plain versions) on the smoke configs: prefill and 8 decode steps;
 
 and prints the kernel table and, as its last line,
-``{"ok": true, "device": {...}}``. Every check raises on failure. It
+``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --flash-variants`` instead builds the bf16 flash
+kernel with each of its tuning macros (keys per tile, consumer
+warpgroups per block), holds every build against the plain version and
+times each against the default on the device, then stops. Every check raises on failure. It
 exits non-zero, printing no result, when no card is available or when
 ``src/repro_torch`` is missing. Each main path reads its own launch
 counts: the scheduler's (phases 2 and 3) and the serving path's (phase
@@ -53,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +89,10 @@ GOLDEN_FLEET_ROWS = [
 GOLDEN_FLEET_COUNTERS = dict(
     n_epochs=6, n_served=5, n_backfilled=0, horizon=691.8271308510732
 )
+
+# The port's own kernels (csrc/*.cu), reported by name in every profile.
+PORT_KERNELS = ("cpm_rows_kernel", "flash_fwd_", "decode_chunk_kernel",
+                "decode_combine_kernel")
 
 SERVE_JOBS = 200
 PROFILE_JOBS = 20
@@ -152,6 +166,44 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per call with no host in the way: ``reps`` calls captured
+    in one CUDA graph, replayed once between two events."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, reps: int = 100) -> float:
+    """Host microseconds per call (the enqueue: checks, allocation, launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def lb_inputs(np, torch, rng, B: int, n: int):
@@ -230,12 +282,15 @@ def profile_run(label: str, fn, wall_unprofiled: float) -> None:
         emit("profile", run=label, device_time="not measured", wall_s=wall)
         return
     top = sorted(rows, key=dev_us, reverse=True)[:8]
+    ours = [e for e in rows if any(n in e.key for n in PORT_KERNELS)]
     emit("profile", run=label, wall_profiled_s=wall,
          wall_unprofiled_s=wall_unprofiled, device_s=total_us / 1e6,
          busy_share_of_unprofiled=total_us / 1e6 / wall_unprofiled,
          device_kernels=sum(e.count for e in rows),
          top=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, count=e.count)
-              for e in top])
+              for e in top],
+         port_kernels=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, count=e.count)
+                       for e in ours])
 
 def _larger(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -249,9 +304,36 @@ def flash_bound(torch, q, k, causal: bool) -> tuple[float, str]:
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     nbytes = q.element_size() * (2 * B * S * H * D + 2 * B * T * KV * D)
-    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    return _larger(nbytes, 4 * B * H * D * pairs, rate)
+    return _larger(nbytes, flash_flops(q, k, causal), rate)
+
+
+def flash_ptxas(log: str, lib) -> list[dict]:
+    """Registers, spills and dynamic shared memory of each bf16 flash
+    instantiation (``flash_fwd_bf16<D, kBK>``), from nvcc's ``-Xptxas -v``
+    report and the library's own size query."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", line)
+            cur = dict(D=int(m.group(1)), block_kv=int(m.group(2))) if m else None
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used" in line:
+            cur["registers_at_entry"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            cur["dynamic_smem_bytes"] = lib.flash_attention_smem_bytes(1, cur["D"])
+            out.append(cur)
+            cur = None
+    return sorted(out, key=lambda r: r["D"])
+
+
+def flash_flops(q, k, causal: bool) -> int:
+    """4 * H * D flops per (query, key) pair, the causal triangle only."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+    return 4 * B * H * D * pairs
 
 
 def decode_bound(torch, q, k, lens: list[int]) -> tuple[float, str]:
@@ -306,21 +388,35 @@ def attention_kernels(np, torch) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     rows, max_err = {}, {"flash_attention": 0.0, "decode_attention": 0.0}
 
-    def record(name, label, errs, kern, plain, lib, b, **shape):
+    def record(name, label, errs, kern, plain, lib, b, flops=None, **shape):
         err, rel = errs
         ms = cuda_ms(torch, kern)
         plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
         lib_ms, lib_err = library_ms(torch, lib)
         max_err[name] = max(max_err[name], err)
+        extra = {}
+        if flops is not None:  # flash: the rate, and the host time of a call
+            extra = dict(tflop_s=flops / ms / 1e9, share_of_bound=b[0] / ms,
+                         host_us_per_call=host_us(torch, kern))
+        if flops is not None and shape["dtype"] == "torch.bfloat16":
+            # The device times alone (no host between launches), SDPA's too.
+            dev = graph_ms(torch, kern)
+            extra.update(device_ms=dev, device_tflop_s=flops / dev / 1e9,
+                         library_device_ms=graph_ms(torch, lib))
         emit("attention", kernel=name, shape=label, max_abs_err=err,
              max_row_rel_err=rel, ms=ms,
              plain_ms=plain_ms, library_ms=lib_ms, library_error=lib_err,
-             bound_ms=b[0], bound_by=b[1], **shape)
+             bound_ms=b[0], bound_by=b[1], **extra, **shape)
         if label.startswith("serve"):
             rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=b[0], bound_by=b[1])
 
     flash = [("serve_prefill", 4, 512, 24, 8, 128, True, bf16)]
+    # The other published head widths, causal bf16: phi3-mini (D 96, MHA)
+    # and seamless-m4t-medium (D 64, MHA).
+    flash += [(f"{arch}_S{S}", 4 if S == 512 else 1, S, H, H, D, True, bf16)
+              for arch, H, D in (("phi3-mini", 32, 96), ("seamless", 16, 64))
+              for S in (512, 2048)]
     for dt in (bf16, f32):
         flash += [(f"llama_S{S}", 1, S, 24, 8, 128, c, dt)
                   for S in (2048, 1000) for c in (True, False)]
@@ -340,7 +436,7 @@ def attention_kernels(np, torch) -> dict:
                lambda: ref.ref_flash_attention(q, k, v, causal),
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=True),
-               flash_bound(torch, q, k, causal),
+               flash_bound(torch, q, k, causal), flash_flops(q, k, causal),
                B=B, S=S, H=H, KV=KV, D=D, causal=causal, dtype=str(dt))
         del q, k, v, qt, kt, vt, got, want
     torch.cuda.empty_cache()
@@ -377,6 +473,70 @@ def attention_kernels(np, torch) -> dict:
     for name in rows:
         rows[name]["max_abs_err"] = max_err[name]
     return rows
+
+
+# Tuning macros of the bf16 flash kernel (csrc/flash_attention.cu), for
+# ``--flash-variants``: keys per tile and consumer warpgroups per block.
+FLASH_VARIANTS = {
+    "default": (),
+    "block_kv_64": ("-DFLASH_BLOCK_KV=64",),
+    "one_consumer": ("-DFLASH_CONSUMERS=1",),
+    "one_consumer_block_kv_64": ("-DFLASH_CONSUMERS=1", "-DFLASH_BLOCK_KV=64"),
+}
+
+
+def flash_variants(torch) -> None:
+    """``--flash-variants``: every FLASH_VARIANTS build of the flash source,
+    side by side. Each is held against the plain version at phase 5a's bf16
+    causal shapes (and llama's non-causal one) and timed on the device
+    alone (CUDA graph) in turns with the default: default, variant,
+    variant, default."""
+    import math
+
+    from repro_torch.kernels import attention, build, ref
+
+    libs = build.build_all([("flash_attention", f) for f in FLASH_VARIANTS.values()])
+    source = build.SOURCES["flash_attention"]
+    for name, flags in FLASH_VARIANTS.items():
+        emit("flash_variant_ptxas", variant=name, flags=list(flags),
+             instantiations=flash_ptxas(build.build_log(source, flags),
+                                        libs[("flash_attention", flags)]))
+
+    def call(lib, q, k, v, causal):
+        B, S, H, D = q.shape
+        T, KV = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        err = lib.flash_attention_fwd(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            attention._strides(q, k, v, out), B, S, T, H, KV, D, int(causal),
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"flash variant failed to launch: cudaError {err}")
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [("serve_prefill", 4, 512, 24, 8, 128, True),
+              ("llama_S2048", 1, 2048, 24, 8, 128, True),
+              ("llama_S2048", 1, 2048, 24, 8, 128, False)]
+    shapes += [(f"{arch}_S{S}", 4 if S == 512 else 1, S, H, H, D, True)
+               for arch, H, D in (("phi3-mini", 32, 96), ("seamless", 16, 64))
+               for S in (512, 2048)]
+    base = libs[("flash_attention", ())]
+    for label, B, S, H, KV, D, causal in shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+        want = ref.ref_flash_attention(q, k, v, causal)
+        for name, flags in FLASH_VARIANTS.items():
+            got = call(libs[("flash_attention", flags)], q, k, v, causal)
+            check_attention(torch, f"flash_attention {name}", got, want, torch.bfloat16,
+                            f"{label} {(B, S, H, KV, D, causal)}")
+            if not flags:
+                continue
+            lib = libs[("flash_attention", flags)]
+            t = [graph_ms(torch, lambda fn=fn: call(fn, q, k, v, causal))
+                 for fn in (base, lib, lib, base)]
+            emit("flash_variant", variant=name, shape=label, B=B, S=S, H=H, KV=KV,
+                 D=D, causal=causal, device_ms=[t[1], t[2]],
+                 default_device_ms=[t[0], t[3]])
 
 
 def _tree_to(tree, device):
@@ -572,6 +732,12 @@ def main() -> int:
                     if "Used" in ln or "spill" in ln]
              for name, src in build.SOURCES.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    emit("flash_bf16_ptxas", instantiations=flash_ptxas(
+        build.build_log(build.SOURCES["flash_attention"]), build.load("flash_attention")))
+    if "--flash-variants" in sys.argv[1:]:
+        flash_variants(torch)
+        print(json.dumps(ok_line(torch)), flush=True)
+        return 0
 
     # -- 1. kernels against their plain versions ------------------------------
     rng = np.random.default_rng(0)
@@ -778,12 +944,14 @@ def main() -> int:
     ]
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                   "count": torch.cuda.device_count()},
-    }), flush=True)
+    print(json.dumps(ok_line(torch)), flush=True)
     return 0
+
+
+def ok_line(torch) -> dict:
+    return {"ok": True,
+            "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                       "count": torch.cuda.device_count()}}
 
 
 if __name__ == "__main__":

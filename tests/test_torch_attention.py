@@ -9,6 +9,8 @@ sums. The CUDA kernels are held against the same plain versions on the
 card (``chip_smoke.py`` and the ``cuda``-marked test below).
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,6 +50,8 @@ def _close(got: torch.Tensor, want, tol: float) -> None:
         (1, 64, 8, 8, 32, 32, 64, False),
         (1, 32, 4, 1, 32, 16, 32, True),   # MQA
         (2, 64, 6, 2, 16, 32, 16, True),   # G = 3, as llama3.2-3b
+        (1, 32, 2, 2, 96, 16, 16, True),   # D = 96 (phi3-mini), G = 1
+        (1, 32, 8, 2, 96, 16, 32, False),  # D = 96, G = 4
     ],
 )
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -140,11 +144,31 @@ def test_wrappers_reject_bad_inputs():
         tops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+def test_flash_variant_builds_get_their_own_library():
+    """``build.load(name, flags)`` keys a build on its nvcc flags, so the
+    default flash library and the tuning-macro variants that
+    ``chip_smoke.py --flash-variants`` times live side by side (nothing is
+    built here)."""
+    from repro_torch.kernels import build
+
+    src = build.SOURCES["flash_attention"]
+    variants = [(), ("-DFLASH_BLOCK_KV=64",), ("-DFLASH_CONSUMERS=1",),
+                ("-DFLASH_CONSUMERS=1", "-DFLASH_BLOCK_KV=64")]
+    paths = [build._library_path(src, flags) for flags in variants]
+    assert len(set(paths)) == len(variants)
+    assert all(path.parent == build.BUILD_DIR for path in paths)
+    assert build._library_path(src, ()) == build._library_path(src)
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_match_plain_versions_on_card():
     """On a card: both kernels against their plain versions at the stated
     tolerances (elementwise and per output row), with ragged S and T, GQA
-    and MQA, per-row lengths."""
+    and MQA, per-row lengths. The bf16 flash kernel is also swept over the
+    edges of its tiles: every TMA box width and swizzle (D = 16, 48, 96,
+    128), G = 1, 3, 4, 8, and S = T ending mid-tile, with folded rows that
+    cross the 64-row warpgroup boundary inside one query, causal or not,
+    on q, k and v as strided views of one fused tensor."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the CPU route is covered above)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -178,3 +202,16 @@ def test_cuda_attention_kernels_match_plain_versions_on_card():
             kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
             got = tops.decode_attention(q, k, v, kl)
             close(got, ref.ref_decode_attention(q, k, v, kl), tol, row_tol)
+
+    def rn16(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for D, G, S, causal in itertools.product(
+        (16, 48, 96, 128), (1, 3, 4, 8), (1, 65, 129, 1000), (True, False)
+    ):
+        B, KV = 2, 2
+        H = G * KV
+        qkv = rn16(B, S, H + 2 * KV, D)  # views with the head stride of a fused qkv
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+        got = tops.flash_attention(q, k, v, causal)
+        close(got, ref.ref_flash_attention(q, k, v, causal), 4e-2, 1e-2)
