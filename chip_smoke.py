@@ -46,12 +46,7 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      (plain versions) on the smoke configs: prefill and 8 decode steps;
 
 and prints the kernel table and, as its last line,
-``{"ok": true, "device": {...}}``.
-
-``python3 chip_smoke.py --flash-variants`` instead builds the bf16 flash
-kernel with each of its tuning macros (keys per tile, consumer
-warpgroups per block), holds every build against the plain version and
-times each against the default on the device, then stops. Every check raises on failure. It
+``{"ok": true, "device": {...}}``. Every check raises on failure. It
 exits non-zero, printing no result, when no card is available or when
 ``src/repro_torch`` is missing. Each main path reads its own launch
 counts: the scheduler's (phases 2 and 3) and the serving path's (phase
@@ -310,13 +305,13 @@ def flash_bound(torch, q, k, causal: bool) -> tuple[float, str]:
 
 def flash_ptxas(log: str, lib) -> list[dict]:
     """Registers, spills and dynamic shared memory of each bf16 flash
-    instantiation (``flash_fwd_bf16<D, kBK>``), from nvcc's ``-Xptxas -v``
+    instantiation (``flash_fwd_bf16<D>``), from nvcc's ``-Xptxas -v``
     report and the library's own size query."""
     out, cur = [], None
     for line in log.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", line)
-            cur = dict(D=int(m.group(1)), block_kv=int(m.group(2))) if m else None
+            m = re.search(r"flash_fwd_bf16ILi(\d+)E", line)
+            cur = dict(D=int(m.group(1))) if m else None
         elif cur is not None and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
@@ -473,70 +468,6 @@ def attention_kernels(np, torch) -> dict:
     for name in rows:
         rows[name]["max_abs_err"] = max_err[name]
     return rows
-
-
-# Tuning macros of the bf16 flash kernel (csrc/flash_attention.cu), for
-# ``--flash-variants``: keys per tile and consumer warpgroups per block.
-FLASH_VARIANTS = {
-    "default": (),
-    "block_kv_64": ("-DFLASH_BLOCK_KV=64",),
-    "one_consumer": ("-DFLASH_CONSUMERS=1",),
-    "one_consumer_block_kv_64": ("-DFLASH_CONSUMERS=1", "-DFLASH_BLOCK_KV=64"),
-}
-
-
-def flash_variants(torch) -> None:
-    """``--flash-variants``: every FLASH_VARIANTS build of the flash source,
-    side by side. Each is held against the plain version at phase 5a's bf16
-    causal shapes (and llama's non-causal one) and timed on the device
-    alone (CUDA graph) in turns with the default: default, variant,
-    variant, default."""
-    import math
-
-    from repro_torch.kernels import attention, build, ref
-
-    libs = build.build_all([("flash_attention", f) for f in FLASH_VARIANTS.values()])
-    source = build.SOURCES["flash_attention"]
-    for name, flags in FLASH_VARIANTS.items():
-        emit("flash_variant_ptxas", variant=name, flags=list(flags),
-             instantiations=flash_ptxas(build.build_log(source, flags),
-                                        libs[("flash_attention", flags)]))
-
-    def call(lib, q, k, v, causal):
-        B, S, H, D = q.shape
-        T, KV = k.shape[1], k.shape[2]
-        out = torch.empty_like(q)
-        err = lib.flash_attention_fwd(
-            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            attention._strides(q, k, v, out), B, S, T, H, KV, D, int(causal),
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"flash variant failed to launch: cudaError {err}")
-        return out
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [("serve_prefill", 4, 512, 24, 8, 128, True),
-              ("llama_S2048", 1, 2048, 24, 8, 128, True),
-              ("llama_S2048", 1, 2048, 24, 8, 128, False)]
-    shapes += [(f"{arch}_S{S}", 4 if S == 512 else 1, S, H, H, D, True)
-               for arch, H, D in (("phi3-mini", 32, 96), ("seamless", 16, 64))
-               for S in (512, 2048)]
-    base = libs[("flash_attention", ())]
-    for label, B, S, H, KV, D, causal in shapes:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                   for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
-        want = ref.ref_flash_attention(q, k, v, causal)
-        for name, flags in FLASH_VARIANTS.items():
-            got = call(libs[("flash_attention", flags)], q, k, v, causal)
-            check_attention(torch, f"flash_attention {name}", got, want, torch.bfloat16,
-                            f"{label} {(B, S, H, KV, D, causal)}")
-            if not flags:
-                continue
-            lib = libs[("flash_attention", flags)]
-            t = [graph_ms(torch, lambda fn=fn: call(fn, q, k, v, causal))
-                 for fn in (base, lib, lib, base)]
-            emit("flash_variant", variant=name, shape=label, B=B, S=S, H=H, KV=KV,
-                 D=D, causal=causal, device_ms=[t[1], t[2]],
-                 default_device_ms=[t[0], t[3]])
 
 
 def _tree_to(tree, device):
@@ -734,10 +665,6 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     emit("flash_bf16_ptxas", instantiations=flash_ptxas(
         build.build_log(build.SOURCES["flash_attention"]), build.load("flash_attention")))
-    if "--flash-variants" in sys.argv[1:]:
-        flash_variants(torch)
-        print(json.dumps(ok_line(torch)), flush=True)
-        return 0
 
     # -- 1. kernels against their plain versions ------------------------------
     rng = np.random.default_rng(0)
@@ -944,14 +871,12 @@ def main() -> int:
     ]
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps(ok_line(torch)), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                   "count": torch.cuda.device_count()},
+    }), flush=True)
     return 0
-
-
-def ok_line(torch) -> dict:
-    return {"ok": True,
-            "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                       "count": torch.cuda.device_count()}}
 
 
 if __name__ == "__main__":

@@ -6,10 +6,8 @@ compiles ``csrc/<name>.cu`` for ``sm_90a`` at first use into
 ``build/repro_torch/`` under the checkout root, keyed on a hash of the
 source so an edit rebuilds it, and returns the loaded library with its
 argument types set. ``build_all()`` starts one ``nvcc`` per source at
-once and waits for all of them. ``load(name, flags)`` builds a variant
-with extra ``nvcc`` flags (``-D`` settings of a kernel's tuning macros)
-beside the default library, keyed on the flags too. Nothing is built at
-import time: this module is imported on machines without ``nvcc``.
+once and waits for all of them. Nothing is built at import time: this
+module is imported on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -78,7 +76,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}  # (name, flags)
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -92,29 +90,27 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path(source: Path, flags: tuple[str, ...] = ()) -> Path:
-    key = source.read_bytes() + "\0".join(flags).encode()
-    digest = hashlib.sha256(key).hexdigest()[:16]
+def _library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build_log(source: Path = CPM_SOURCE, flags: tuple[str, ...] = ()) -> str:
+def build_log(source: Path = CPM_SOURCE) -> str:
     """nvcc's output (``-Xptxas -v`` register and shared-memory report) of
-    the last build of ``source`` with ``flags``, or "" if it was not built
-    here."""
-    log = _library_path(source, flags).with_suffix(".log")
+    the last build of ``source``, or "" if it was not built here."""
+    log = _library_path(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def _start(source: Path, flags: tuple[str, ...] = ()):
+def _start(source: Path):
     """Start nvcc for ``source`` unless its library exists; returns
     (library path, temp path, command, process or None)."""
-    lib = _library_path(source, flags)
+    lib = _library_path(source)
     if lib.exists():
         return lib, None, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
     )
@@ -145,37 +141,37 @@ def _open(name: str, path: Path) -> ctypes.CDLL:
     return lib
 
 
-def load(name: str, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The kernel library ``name`` (a key of :data:`SOURCES`) built with
-    the extra nvcc ``flags``, built and loaded on first use; later calls
-    return the loaded library without touching the disk (a source edit
-    takes effect in the next process)."""
-    lib = _libs.get((name, flags))
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` (a key of :data:`SOURCES`), built and
+    loaded on first use; later calls return the loaded library without
+    touching the disk (a source edit takes effect in the next process)."""
+    lib = _libs.get(name)
     if lib is not None:
         return lib
-    return build_all([(name, flags)])[(name, flags)]
-
-
-def build_all(
-    variants: list[tuple[str, tuple[str, ...]]] | None = None,
-) -> dict[tuple[str, tuple[str, ...]], ctypes.CDLL]:
-    """Build every library of ``variants`` ((name, flags) pairs; by default
-    each source with no extra flags) not yet loaded, one nvcc per library,
-    all started together; returns the loaded libraries by (name, flags)."""
-    if variants is None:
-        variants = [(n, ()) for n in SOURCES]
     with _lock:
-        todo = [v for v in variants if v not in _libs]
-        started = [(v, _start(SOURCES[v[0]], v[1])) for v in todo]
+        lib = _libs.get(name)
+        if lib is None:
+            source = SOURCES[name]
+            lib = _open(name, _finish(source, *_start(source)))
+            _libs[name] = lib
+        return lib
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Build every library not yet loaded, one nvcc per source, all
+    started together; returns the loaded libraries by name."""
+    with _lock:
+        todo = [n for n in SOURCES if n not in _libs]
+        started = [(n, _start(SOURCES[n])) for n in todo]
         errors = []
-        for (n, flags), job in started:
+        for n, job in started:
             try:
-                _libs[(n, flags)] = _open(n, _finish(SOURCES[n], *job))
+                _libs[n] = _open(n, _finish(SOURCES[n], *job))
             except RuntimeError as e:  # wait for the other builds first
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
-        return {v: _libs[v] for v in variants}
+        return dict(_libs)
 
 
 def load_cpm() -> ctypes.CDLL:

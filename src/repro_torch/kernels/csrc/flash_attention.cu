@@ -74,8 +74,6 @@
 // A consumer warp releases a stage (arrives on its empty barrier) only after
 // wgmma.wait_group has retired its reads. A wait on a barrier that never
 // completes traps after about two seconds instead of hanging the card.
-// FLASH_BLOCK_KV (64) and FLASH_CONSUMERS (1) build the alternatives that
-// `chip_smoke.py --flash-variants` times against these defaults.
 //
 // float32 body (flash_fwd_f32): the tests' type, held at 2e-5, which TF32
 // would miss, so its products are float32 FMAs on the CUDA cores. One block
@@ -348,33 +346,29 @@ namespace tc {
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// Consumer warpgroups per block (each owns 64 folded rows), and a producer
-// warpgroup of which one warp issues the loads: ptxas sizes a kernel that
-// uses setmaxnreg in whole warpgroups, and the three idle warps hand their
-// registers over. A build may set FLASH_CONSUMERS to 1 (a block of 64
-// rows, two blocks an SM where shared memory allows) to compare.
-#ifndef FLASH_CONSUMERS
-#define FLASH_CONSUMERS 2
-#endif
-constexpr int kConsumers = FLASH_CONSUMERS;
+// Two consumer warpgroups per block (each owns 64 folded rows), and a
+// producer warpgroup of which one warp issues the loads: ptxas sizes a
+// kernel that uses setmaxnreg in whole warpgroups, and the three idle warps
+// hand their registers over.
+constexpr int kConsumers = 2;
 constexpr int kRows = 64 * kConsumers;  // folded rows per block
 constexpr int kThreads = 128 * kConsumers + 128;
-constexpr int kMinBlocks = kConsumers == 1 ? 2 : 1;  // blocks an SM
-constexpr int kStages = 2;                           // K/V ring depth
-// setmaxnreg targets: the registers a block gets at launch (65,536 an SM
-// over its threads, in steps of 8), 24 a thread left to the producer
-// warpgroup and the rest, at most 240, to the consumers (168 * 384 =
-// 128 * 24 + 256 * 240 for two consumer warpgroups).
-constexpr int kEntryRegs = 65536 / (kThreads * kMinBlocks) / 8 * 8;
+constexpr int kStages = 2;  // K/V ring depth
+constexpr int kBK = 128;    // keys per tile: 64 float32 score registers a thread
+// setmaxnreg targets: a block of 384 threads gets 168 registers a thread at
+// launch (65,536 an SM, in steps of 8); 24 go to the producer warpgroup and
+// 240 to the consumers (168 * 384 = 128 * 24 + 256 * 240).
 constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = cmin(
-    240, (kEntryRegs * kThreads - 128 * kProducerRegs) / (128 * kConsumers) / 8 * 8);
+constexpr int kConsumerRegs = 240;
+static_assert(65536 / kThreads / 8 * 8 * kThreads >=
+                  128 * kProducerRegs + 128 * kConsumers * kConsumerRegs,
+              "setmaxnreg targets exceed the registers of one block an SM");
 constexpr long long kWatchdogCycles = 4000000000LL;  // ~2 s at 1.98 GHz
 
-// Tile geometry for head size D and kBK keys per tile. A K or V tile is
-// kBoxes boxes of [kBK rows x kW columns], one TMA box each, every row
-// 2 * kW bytes wide with the matching swizzle; Q is the same with 64 rows.
-template <int D, int kBK>
+// Tile geometry for head size D. A K or V tile is kBoxes boxes of
+// [kBK rows x kW columns], one TMA box each, every row 2 * kW bytes wide
+// with the matching swizzle; Q is the same with 64 rows.
+template <int D>
 struct Cfg {
   static_assert(D % 16 == 0 && D <= kMaxD, "D must be a multiple of 16, <= 128");
   static constexpr int kW = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
@@ -397,13 +391,6 @@ struct Cfg {
   static constexpr uint32_t kBar = kV + kStages * kTile;  // 4 barriers a stage
   static constexpr uint32_t kBytes = kBar + 4 * kStages * 8 + 1024;  // + alignment
 };
-
-// Keys per tile: 128 keys take 64 float32 score registers per thread. A
-// build may set FLASH_BLOCK_KV to 64 to compare.
-#ifndef FLASH_BLOCK_KV
-#define FLASH_BLOCK_KV 128
-#endif
-constexpr int kBlockKV = FLASH_BLOCK_KV;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -510,28 +497,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// wgmma wrappers, m64 nN k16 with a float32 accumulator d. ss: A and B from
-// shared memory, both K-major; scale_d = 0 overwrites d. rs: A (four
+// wgmma wrappers, m64 nN k16 with a float32 accumulator d. ss (N = kBK):
+// A and B from shared memory, both K-major; scale_d = 0 overwrites d. rs: A (four
 // registers of bfloat16 pairs) from registers, B from shared memory through
 // the transpose flag (N-major); always accumulates.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
                                          int scale_d) {
   asm volatile(
@@ -717,7 +686,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // row sees key 0 in its first tile). On return sc holds p (float32,
 // unrounded), m the new row maxima, l the rescaled partial row sums plus
 // this tile's p, and alpha the factor the accumulator must take.
-template <int kBK>
 __device__ __forceinline__ void online_softmax(float (&sc)[kBK / 2], float (&m)[2],
                                                float (&l)[2], float (&alpha)[2],
                                                bool edge, int t0, int T, bool causal,
@@ -752,7 +720,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBK / 2], float (&m)[
 
 // p as bfloat16 A fragments of the P.V product: the m64 k16 fragment of
 // keys 16 kk..16 kk + 15 is sc[8 kk..8 kk + 7] in pairs.
-template <int kBK>
 __device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
                                        uint32_t (&pa)[kBK / 16][4]) {
 #pragma unroll
@@ -777,8 +744,7 @@ struct Unit {
   int row0, kvh, b, n_tiles;
 };
 
-__device__ __forceinline__ Unit unit_of(int w, const Params& p, int n_row_tiles,
-                                        int kBK) {
+__device__ __forceinline__ Unit unit_of(int w, const Params& p, int n_row_tiles) {
   const int G = p.H / p.KV;
   const int n_rows = p.S * G;
   const int per_tile = p.KV * p.B;
@@ -792,11 +758,11 @@ __device__ __forceinline__ Unit unit_of(int w, const Params& p, int n_row_tiles,
   return u;
 }
 
-template <int D, int kBK>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using C = Cfg<D, kBK>;
+  using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms need 1024 B
@@ -834,7 +800,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (warp == 4 * kConsumers && lane == 0) {
       int g = 0;
       for (int i = 0, w; (w = unit_index(i, n_units)) >= 0; ++i) {
-        const Unit u = unit_of(w, p, n_row_tiles, kBK);
+        const Unit u = unit_of(w, p, n_row_tiles);
         for (int j = 0; j < u.n_tiles; ++j, ++g) {
           const int s = g % kStages;
           const uint32_t free_parity = ((g / kStages) & 1) ^ 1;
@@ -888,9 +854,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     int g = 0;  // the block's tile count so far: ring stage and phase
     int w = unit_index(0, n_units);
-    if (w >= 0) load_q(unit_of(w, p, n_row_tiles, kBK));
+    if (w >= 0) load_q(unit_of(w, p, n_row_tiles));
     for (int i = 0; w >= 0; ++i) {
-      const Unit u = unit_of(w, p, n_row_tiles, kBK);
+      const Unit u = unit_of(w, p, n_row_tiles);
       const int i0 = u.row0 + 64 * wg;  // this warpgroup's first folded row
       cp_async_wait_all();
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -942,9 +908,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const int t0 = j * kBK;
           const bool edge = t0 + kBK > p.T || (p.causal && t0 + kBK - 1 > s_first);
           float alpha[2];
-          online_softmax<kBK>(sc, m, l, alpha, edge, t0, p.T, p.causal, srow, c, c2);
+          online_softmax(sc, m, l, alpha, edge, t0, p.T, p.causal, srow, c, c2);
           uint32_t pa[kBK / 16][4];
-          pack_p<kBK>(sc, pa);
+          pack_p(sc, pa);
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
           mbar_wait(full_v(st), ph);
@@ -975,7 +941,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       // then write this unit's output while it lands.
       named_sync(1 + wg, 128);
       const int next = unit_index(i + 1, n_units);
-      if (next >= 0) load_q(unit_of(next, p, n_row_tiles, kBK));
+      if (next >= 0) load_q(unit_of(next, p, n_row_tiles));
 
       // out = O / max(l, 1e-30) in bfloat16, staged row-major, then 16-byte
       // stores through the output strides.
@@ -1034,8 +1000,7 @@ EncodeTiled encode_tiled() {
 // Rank-4 map over a [B, T, KV, D] bfloat16 tensor with element strides
 // (sb, st, sh), box (w, 1, kBK, 1).
 bool encode_kv(CUtensorMap* map, const void* ptr, int64_t sb, int64_t st,
-               int64_t sh, const Params& p, int w, int bk,
-               CUtensorMapSwizzle swizzle) {
+               int64_t sh, const Params& p, int w, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.D),
@@ -1046,7 +1011,7 @@ bool encode_kv(CUtensorMap* map, const void* ptr, int64_t sb, int64_t st,
                                  static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), 1,
-                             static_cast<cuuint32_t>(bk), 1};
+                             static_cast<cuuint32_t>(kBK), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -1068,9 +1033,8 @@ int sm_count() {
 
 template <int D>
 int launch_d(const Params& p, cudaStream_t stream) {
-  constexpr int kBK = kBlockKV;
-  using C = Cfg<D, kBK>;
-  auto* kernel = flash_fwd_bf16<D, kBK>;
+  using C = Cfg<D>;
+  auto* kernel = flash_fwd_bf16<D>;
   // Once per instantiation: raise the shared-memory limit, and refuse to
   // launch if setmaxnreg's targets exceed the registers the block is given
   // (the consumers' setmaxnreg.inc would wait for them forever).
@@ -1088,13 +1052,13 @@ int launch_d(const Params& p, cudaStream_t stream) {
   }();
   if (ready != 0) return ready;
   CUtensorMap tm_k, tm_v;
-  if (!encode_kv(&tm_k, p.k, p.k_sb, p.k_st, p.k_sh, p, C::kW, kBK, C::kSwizzle) ||
-      !encode_kv(&tm_v, p.v, p.v_sb, p.v_st, p.v_sh, p, C::kW, kBK, C::kSwizzle))
+  if (!encode_kv(&tm_k, p.k, p.k_sb, p.k_st, p.k_sh, p, C::kW, C::kSwizzle) ||
+      !encode_kv(&tm_v, p.v, p.v_sb, p.v_st, p.v_sh, p, C::kW, C::kSwizzle))
     return static_cast<int>(cudaErrorInvalidValue);
-  // Persistent blocks, kMinBlocks an SM, each taking a unit a round.
+  // Persistent blocks, one an SM, each taking a unit a round.
   const int G = p.H / p.KV;
   const int n_units = (p.S * G + kRows - 1) / kRows * p.KV * p.B;
-  const int blocks = cmin(n_units, kMinBlocks * sm_count());
+  const int blocks = cmin(n_units, sm_count());
   if (blocks <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   kernel<<<blocks, kThreads, C::kBytes, stream>>>(tm_k, tm_v, p);
   return static_cast<int>(cudaGetLastError());
@@ -1176,6 +1140,6 @@ extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   if (dtype == 0) return static_cast<int>(f32::Layout(D).bytes);
   return tc::with_d(D, [](auto d) {
     constexpr int kD = decltype(d)::value;
-    return static_cast<int>(tc::Cfg<kD, tc::kBlockKV>::kBytes);
+    return static_cast<int>(tc::Cfg<kD>::kBytes);
   });
 }

@@ -144,20 +144,22 @@ def test_wrappers_reject_bad_inputs():
         tops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
-def test_flash_variant_builds_get_their_own_library():
-    """``build.load(name, flags)`` keys a build on its nvcc flags, so the
-    default flash library and the tuning-macro variants that
-    ``chip_smoke.py --flash-variants`` times live side by side (nothing is
-    built here)."""
+def test_library_path_is_keyed_on_the_source(tmp_path):
+    """A kernel library is named by a hash of its source, so an edited
+    source builds a new library under ``build/`` and an unchanged one finds
+    the old (nothing is built here)."""
     from repro_torch.kernels import build
 
-    src = build.SOURCES["flash_attention"]
-    variants = [(), ("-DFLASH_BLOCK_KV=64",), ("-DFLASH_CONSUMERS=1",),
-                ("-DFLASH_CONSUMERS=1", "-DFLASH_BLOCK_KV=64")]
-    paths = [build._library_path(src, flags) for flags in variants]
-    assert len(set(paths)) == len(variants)
-    assert all(path.parent == build.BUILD_DIR for path in paths)
-    assert build._library_path(src, ()) == build._library_path(src)
+    a, b, a2 = (tmp_path / name for name in ("a.cu", "b.cu", "a2.cu"))
+    a.write_text("__global__ void f() {}\n")
+    b.write_text("__global__ void f() { }\n")
+    a2.write_text(a.read_text())
+    pa, pb = build._library_path(a), build._library_path(b)
+    assert pa != pb
+    assert pa.parent == pb.parent == build.BUILD_DIR
+    assert build._library_path(a2).name.split("_")[-1] == pa.name.split("_")[-1]
+    assert build._library_path(build.SOURCES["flash_attention"]).name.startswith(
+        "libflash_attention_")
 
 
 @pytest.mark.cuda
