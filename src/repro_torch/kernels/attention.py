@@ -17,7 +17,13 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["flash_attention", "decode_attention", "launches", "MAX_HEAD_DIM"]
+__all__ = [
+    "flash_attention",
+    "decode_attention",
+    "decode_splits",
+    "launches",
+    "MAX_HEAD_DIM",
+]
 
 # Kernel launches per entry point (plain integers; the CPU route adds 0).
 launches = {"flash_attention": 0, "decode_attention": 0}
@@ -112,6 +118,33 @@ def flash_attention(
     return out
 
 
+# The decode kernel's split plan (csrc/decode_attention.cu, points 1-2).
+# A block holds a 64 KB ring, so three fit an SM's shared memory; the plan
+# asks for about two waves of blocks, and no split under 64 cache rows.
+DECODE_BLOCKS_PER_SM = 3
+DECODE_WAVES = 2
+DECODE_MIN_SPLIT_ROWS = 64
+
+_sm_counts: dict[int, int] = {}
+
+
+def decode_splits(B: int, KV: int, T: int, n_sm: int) -> int:
+    """Splits S of the cache per (batch row, kv head): the fewest that give
+    ``B * KV * S`` about ``DECODE_WAVES`` waves of blocks on ``n_sm`` SMs,
+    with no split covering fewer than ``DECODE_MIN_SPLIT_ROWS`` rows of T
+    (S = 1 when T itself is shorter)."""
+    want = -(-DECODE_WAVES * DECODE_BLOCKS_PER_SM * n_sm // (B * KV))
+    return max(1, min(want, T // DECODE_MIN_SPLIT_ROWS))
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
 def decode_attention(
     q: torch.Tensor,  # [B, H, D]: one query token per batch row
     k: torch.Tensor,  # [B, T, KV, D] cache
@@ -121,7 +154,9 @@ def decode_attention(
 ) -> torch.Tensor:
     """[B, H, D] in q's type: each row's query against its first
     ``kv_len[b]`` cache rows. ``block_kv`` is accepted for signature
-    parity with the JAX package; the CUDA kernel sizes its own chunks."""
+    parity with the JAX package; the CUDA kernel sizes its own tiles and
+    takes its split count from :func:`decode_splits`. An int ``kv_len``
+    reaches the kernel by value."""
     _check("q", q, 3)
     _check("k", k, 4)
     _check("v", v, 4)
@@ -132,6 +167,7 @@ def decode_attention(
         raise ValueError(f"k and v must be [B, T, KV, D] = {(B, T, KV, D)}")
     if min(B, T, H, KV, D) <= 0 or H % KV:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
+    lens, len_all = None, 0
     if isinstance(kv_len, torch.Tensor):
         if kv_len.dim() > 1 or (kv_len.dim() == 1 and kv_len.shape[0] not in (1, B)):
             raise ValueError(f"kv_len must be [] or [B], got {tuple(kv_len.shape)}")
@@ -139,21 +175,21 @@ def decode_attention(
             raise ValueError(f"kv_len is on {kv_len.device}, expected {q.device}")
         lens = kv_len.to(torch.int32).reshape(-1).expand(B).contiguous()
     else:
-        lens = torch.full((B,), int(kv_len), dtype=torch.int32, device=q.device)
+        # Clamped into int32 without changing the result: <= 0 masks every
+        # row, >= T takes every row.
+        len_all = max(-1, min(int(kv_len), T))
     if q.device.type == "cpu":
-        return ref.ref_decode_attention(q, k, v, lens)
+        return ref.ref_decode_attention(q, k, v, len_all if lens is None else lens)
     from repro_torch.kernels.build import load
 
     _kernel_layout(8, q, k, v)
-    lib = load("decode_attention")
-    n_chunks = lib.decode_attention_chunks(T)
+    S = decode_splits(B, KV, T, _sm_count(q.device))
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    part_ml = torch.empty((B, H, n_chunks, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, H, n_chunks, D), dtype=torch.float32, device=q.device)
-    err = lib.decode_attention_fwd(
+    part = torch.empty((B, H, S, D + 2), dtype=torch.float32, device=q.device)
+    err = load("decode_attention").decode_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-        _strides(q, k, v), B, T, H, KV, D, 1.0 / math.sqrt(D),
+        None if lens is None else lens.data_ptr(), len_all, out.data_ptr(),
+        part.data_ptr(), _strides(q, k, v), B, T, H, KV, D, S, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_if(err, "decode_attention_fwd")

@@ -58,13 +58,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_attention_smem_bytes": [_i32, _i32],
     },
     "decode_attention": {
-        # dtype, q, k, v, kv_len, out, part_ml, part_acc, strides[8],
-        # B, T, H, KV, D, scale, stream
+        # dtype, q, k, v, kv_len (or null), kv_len_all, out, part,
+        # strides[8], B, T, H, KV, D, n_splits, scale, stream
         "decode_attention_fwd": [
-            _i32, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _i64p,
-            _i32, _i32, _i32, _i32, _i32, _f32, _ptr,
+            _i32, _ptr, _ptr, _ptr, _ptr, _i32, _ptr, _ptr, _i64p,
+            _i32, _i32, _i32, _i32, _i32, _i32, _f32, _ptr,
         ],
-        "decode_attention_chunks": [_i32],
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}

@@ -6,62 +6,108 @@
 // (decode_attention_fwd, body _kernel). It computes what that kernel
 // computes: for batch row b and head h = kv * G + g,
 //     out[b, h] = softmax_t(q[b, h] . k[b, t, kv] / sqrt(D)) @ v[b, :, kv]
-// over the cache rows t < kv_len[b], float32 scores, max and sums, and the
-// output cast to q's type. A kv_len of T or more takes every row; a kv_len
-// of 0 or less masks every row at -1e30 as the Pallas kernel does, which
-// leaves the uniform average of all T rows. bfloat16 and float32 inputs; D
-// a multiple of 8, at most 128.
+// over the cache rows t < n_b = min(kv_len[b], T), float32 scores, max and
+// sums, and the output cast to q's type. A kv_len of 0 or less masks every
+// row at -1e30 as the Pallas kernel does, which leaves the uniform average
+// of all T rows. bfloat16 and float32 inputs; D a multiple of 8, at most 128;
+// K and V read in place through their [B, T, KV, D] strides, 16-byte rows.
 //
-// What bounds it: bytes. Each valid cache row is read once, K and V, and
-// every byte feeds 2 * G flops, far below the card's ~295 flops per byte.
-// So the design is about streaming the valid part of the cache at full
-// rate:
-//   * The cache is read in place through its [B, T, KV, D] strides. (The
-//     Pallas wrapper's k.transpose(0, 2, 1, 3) would copy the whole cache
-//     once per layer and step.)
-//   * Only rows t < kv_len[b] are read: a chunk wholly past kv_len exits at
-//     once. (A masked row adds exactly 0 to l and acc, so stopping early
-//     gives the same result.)
-//   * B * KV blocks alone (64 at B = 8, KV = 8) would leave half of the
-//     132 SMs idle and each with one long serial walk. Pass 1 splits the
-//     cache into chunks of kChunk rows, one block per (chunk, kv head, batch
-//     row), and writes each chunk's max, sum and unnormalised accumulator
-//     (float32) to a scratch buffer; pass 2 combines the chunks of each
-//     (batch row, head). The scratch is about 1/40 of the cache bytes read.
-//   * Within a block, a group of lanes reads one cache row with 16-byte
-//     loads (bfloat16: 16 lanes cover D = 128) and all G heads of the kv
-//     head use it, so each row is read once for the G heads.
-// The wrapper allocates the scratch; the kernels allocate nothing.
+// What bounds it: bytes. Each valid cache row of K and V is read once and
+// feeds about 2 * G flops a byte pair, against the card's ~295 flops a byte
+// in bf16, so CUDA cores have arithmetic to spare; what a decode kernel
+// lacks is bytes in flight. The design:
+//   1. Grid (split, kv head, batch row): one block serves all G heads of its
+//      kv head, so each cache row is read once for the G heads. The wrapper
+//      picks the split count S for about two waves of blocks on the card.
+//   2. Split s of row b covers rows [s * n_b / S, (s + 1) * n_b / S), with
+//      n_b read on the device, so every block of a ragged batch does about
+//      the same share of its own row and no block exists only to exit. A
+//      split with no rows (n_b < S) writes m = -1e30, l = 0, acc = 0, which
+//      the combine weighs 0.
+//   3. K and V tiles stream through a ring of kStages shared-memory stages
+//      by 16-byte cp.async.cg copies (commit_group / wait_group): each
+//      thread keeps kStages - 1 tiles of its own copies in flight (24
+//      copies, 384 bytes; 48 KB a block) while it computes on the oldest.
+//      Every thread copies exactly the 16-byte chunks it later reads, so
+//      the ring needs no block barrier.
+//   4. One pass with an online softmax: per tile, the G x R scores from
+//      shared memory with q in registers (base-2 exponent, log2(e) folded
+//      into q), the running max m and sum l per head, the accumulator
+//      rescaled once per tile, then p . V on the same tile. acc[G][D] is
+//      spread over the lanes in registers and reduced over the warps once,
+//      at the end of the block, into one float32 partial (acc, m, l) of
+//      [B, H, S, D + 2].
+//   5. A second small launch combines the S partials of each (b, h).
+// The group heads are a template (GM = 1, 2, 3, 4, 8), so G = 3 does three
+// heads' work. The wrapper allocates the scratch; the kernels allocate
+// nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // decode_attention.py:NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kChunk = 128;  // cache rows per pass-1 block
 constexpr int kMaxD = 128;
+// A warp reads kSteps row groups of a tile; a tile of K (or of V) is then
+// kSteps * kWarps * 32 lanes * 16 bytes = 8 KB at any D (fewer rows for a
+// wider row): 32 rows of bf16 or 16 of float32 at D = 128.
+constexpr int kSteps = 4;
+constexpr int kTileBytes = kSteps * kWarps * 32 * 16;
+constexpr int kStages = 4;  // ring depth: 4 x (K + V) = 64 KB a block
+constexpr int kRingBytes = kStages * 2 * kTileBytes;
 
 struct Params {
-  const void* q;   // [B, H, D], strides q_sb, q_sh
-  const void* k;   // [B, T, KV, D] cache, strides k_sb, k_st, k_sh
+  const void* q;      // [B, H, D], strides q_sb, q_sh
+  const void* k;      // [B, T, KV, D] cache, strides k_sb, k_st, k_sh
   const void* v;
-  const int* kv_len;  // [B] int32
-  void* o;         // [B, H, D] contiguous
-  float* part_ml;  // [B, H, n_chunks, 2]: chunk max m and sum l
-  float* part_acc; // [B, H, n_chunks, D]: chunk accumulator
+  const int* kv_len;  // [B] int32, or null: every row has kv_len_all
+  int kv_len_all;
+  void* o;            // [B, H, D] contiguous
+  float* part;        // [B, H, S, D + 2]: split accumulator, then m and l
   int64_t q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
-  int B, T, H, KV, D, n_chunks;
-  float scale;
+  int B, T, H, KV, D, S;
+  float scale_log2;   // log2(e) / sqrt(D)
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Rows of the cache that row b attends to, and whether all are masked.
+__device__ __forceinline__ int valid_rows(const Params& p, int b, bool* none) {
+  const int len = p.kv_len != nullptr ? p.kv_len[b] : p.kv_len_all;
+  *none = len <= 0;
+  return *none ? p.T : min(len, p.T);
 }
+
+// kN elements of one 16-byte chunk, as float32.
+template <typename T>
+struct Chunk;
+template <>
+struct Chunk<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void load(const void* src, float* x) {
+    const float4 r = *reinterpret_cast<const float4*>(src);
+    x[0] = r.x; x[1] = r.y; x[2] = r.z; x[3] = r.w;
+  }
+};
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void load(const void* src, float* x) {
+    const uint4 r = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -71,192 +117,252 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// kVec elements of one 16-byte load, as float32.
-template <typename T>
-struct Vec {
-  static constexpr int kN = 16 / sizeof(T);
-  float x[kN];
-  __device__ __forceinline__ void load(const T* src) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < kN; ++i) x[i] = to_f32(e[i]);
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) x[i] = 0.f;
-  }
-};
-
-// Rows of the cache that row b attends to, and whether all are masked.
-__device__ __forceinline__ int valid_rows(const Params& p, int b, bool* none) {
-  const int len = p.kv_len[b];
-  *none = len <= 0;
-  return *none ? p.T : min(len, p.T);
+// 16 bytes global -> shared, bypassing L1; zero-filled when !pred (the
+// source is then not read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Pass 1: block (chunk, kv head x head group, b). GM is the most group heads
-// one block serves (a block covers heads g0 .. g0 + GM - 1 of its kv head).
+// Pass 1: block (split, kv head x head group, b); GM is the most group
+// heads one block serves (heads g0 .. g0 + GM - 1 of its kv head). lpr
+// lanes (a power of two) read one cache row, chunk `sub` each.
 template <typename T, int GM>
 __global__ void __launch_bounds__(kThreads)
-    decode_chunk_kernel(const Params p, int lanes_per_row) {
-  constexpr int kN = Vec<T>::kN;
-  __shared__ float sS[GM][kChunk];            // scores, then p
-  __shared__ float sAcc[kWarps][GM][kMaxD];   // per-warp partial acc
+    decode_split_kernel(const Params p, int lpr) {
+  using C = Chunk<T>;
+  constexpr int kN = C::kN;
+  extern __shared__ __align__(16) unsigned char ring[];
 
   const int G = p.H / p.KV;
   const int n_gb = (G + GM - 1) / GM;
-  const int chunk = blockIdx.x;
+  const int split = blockIdx.x;
   const int kvh = blockIdx.y / n_gb;
   const int g0 = (blockIdx.y - kvh * n_gb) * GM;
   const int b = blockIdx.z;
   bool none;
-  const int n_valid = valid_rows(p, b, &none);
-  const int t0 = chunk * kChunk;
-  if (t0 >= n_valid) return;  // wholly past kv_len: pass 2 skips it
-  const int t1 = min(t0 + kChunk, n_valid);
+  const int n = valid_rows(p, b, &none);
+  const int r0 = static_cast<int>(static_cast<int64_t>(split) * n / p.S);
+  const int r1 = static_cast<int>(static_cast<int64_t>(split + 1) * n / p.S);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int lpr = lanes_per_row;       // power of two, lanes per cache row
-  const int rows_per_warp = 32 / lpr;
-  const int sub = lane % lpr;          // this lane's slice of the row
-  const int d0 = sub * kN;
-  const bool dlive = d0 < p.D;
-  const int row_in_warp = lane / lpr;
+  const int rps = 32 / lpr;               // rows a warp reads at once
+  const int R = kSteps * kWarps * rps;    // rows a tile
+  const int sub = lane % lpr;             // this lane's chunk of a row
+  const int grp = lane / lpr;             // this lane's row of the warp's rps
+  const bool dlive = sub * kN < p.D;
+  const int row_bytes = p.D * static_cast<int>(sizeof(T));
+  const int n_tiles = (r1 - r0 + R - 1) / R;
 
-  // This lane's slice of the block's query heads, in registers.
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb;
+  // This lane's chunk of the block's query heads, scaled, in registers.
   float qr[GM][kN];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    Vec<T> x;
-    if (dlive && g0 + g < G)
-      x.load(q + (kvh * G + g0 + g) * p.q_sh + d0);
-    else
-      x.zero();
-#pragma unroll
-    for (int i = 0; i < kN; ++i) qr[g][i] = x.x[i];
-  }
-
-  // Scores. Lanes of one row group reduce their partial dot products; the
-  // loop bound is warp-uniform so every lane reaches every shuffle.
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh + d0;
-  for (int tb = t0 + warp * rows_per_warp; tb < t1;
-       tb += kWarps * rows_per_warp) {
-    const int t = tb + row_in_warp;
-    const bool live = t < t1;
-    Vec<T> kx;
-    if (live && dlive)
-      kx.load(k + t * p.k_st);
-    else
-      kx.zero();
+  {
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + sub * kN;
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      float dot = 0.f;
+      if (dlive && g0 + g < G) {
+        C::load(q + (kvh * G + g0 + g) * p.q_sh, qr[g]);
 #pragma unroll
-      for (int i = 0; i < kN; ++i) dot = fmaf(qr[g][i], kx.x[i], dot);
-      for (int off = lpr / 2; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (live && sub == 0) sS[g][t - t0] = none ? kNegInf : dot * p.scale;
-    }
-  }
-  __syncthreads();
-
-  // Chunk max and p = exp(s - m); warp w takes heads w, w + kWarps, ...
-  const int n = t1 - t0;
-  for (int g = warp; g < GM; g += kWarps) {
-    float m = kNegInf;
-    for (int i = lane; i < n; i += 32) m = fmaxf(m, sS[g][i]);
+        for (int i = 0; i < kN; ++i) qr[g][i] *= p.scale_log2;
+      } else {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float l = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float e = expf(sS[g][i] - m);
-      sS[g][i] = e;
-      l += e;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0 && g0 + g < G) {
-      float* ml = p.part_ml +
-                  (((int64_t)b * p.H + kvh * G + g0 + g) * p.n_chunks + chunk) * 2;
-      ml[0] = m;
-      ml[1] = l;
-    }
-  }
-  __syncthreads();
-
-  // acc[g][d] = sum_t p[g][t] v[t][d].
-  float acc[GM][kN];
-#pragma unroll
-  for (int g = 0; g < GM; ++g)
-#pragma unroll
-    for (int i = 0; i < kN; ++i) acc[g][i] = 0.f;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh + d0;
-  for (int tb = t0 + warp * rows_per_warp; tb < t1;
-       tb += kWarps * rows_per_warp) {
-    const int t = tb + row_in_warp;
-    if (t < t1 && dlive) {
-      Vec<T> vx;
-      vx.load(v + t * p.v_st);
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        const float pg = sS[g][t - t0];
-#pragma unroll
-        for (int i = 0; i < kN; ++i) acc[g][i] = fmaf(pg, vx.x[i], acc[g][i]);
+        for (int i = 0; i < kN; ++i) qr[g][i] = 0.f;
       }
     }
   }
-  // Sum over the row groups of the warp, then over the warps.
-  for (int off = lpr; off < 32; off <<= 1) {
+
+  const unsigned char* kg = static_cast<const unsigned char*>(p.k) +
+                            (b * p.k_sb + kvh * p.k_sh) * sizeof(T) + sub * 16;
+  const unsigned char* vg = static_cast<const unsigned char*>(p.v) +
+                            (b * p.v_sb + kvh * p.v_sh) * sizeof(T) + sub * 16;
+  const int64_t k_row = p.k_st * sizeof(T), v_row = p.v_st * sizeof(T);
+
+  // Row of the tile that this lane reads (and copies) at step i.
+  auto tile_row = [&](int i) { return (i * kWarps + warp) * rps + grp; };
+
+  auto load_tile = [&](int j) {
+    unsigned char* sk = ring + (j % kStages) * 2 * kTileBytes + sub * 16;
+    unsigned char* sv = sk + kTileBytes;
+    const int t0 = r0 + j * R;
+    if (!dlive) return;
 #pragma unroll
-    for (int g = 0; g < GM; ++g)
+    for (int i = 0; i < kSteps; ++i) {
+      const int rr = tile_row(i);
+      const bool live = t0 + rr < r1;
+      const int64_t t = live ? t0 + rr : r0;  // a row that exists
+      cp_async16(sk + rr * row_bytes, kg + t * k_row, live);
+      cp_async16(sv + rr * row_bytes, vg + t * v_row, live);
+    }
+  };
+
+  float m[GM], l[GM], acc[GM][kN];
 #pragma unroll
-      for (int i = 0; i < kN; ++i)
-        acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
+  for (int g = 0; g < GM; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[g][i] = 0.f;
   }
-  if (row_in_warp == 0 && dlive) {
+
 #pragma unroll
-    for (int g = 0; g < GM; ++g)
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) load_tile(j);
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();  // this lane's copies of tile j landed
+    // Refill the stage of tile j - 1, which this lane alone has read.
+    if (j + kStages - 1 < n_tiles) load_tile(j + kStages - 1);
+    cp_async_commit();
+
+    const unsigned char* sk = ring + (j % kStages) * 2 * kTileBytes + sub * 16;
+    const unsigned char* sv = sk + kTileBytes;
+    const int t0 = r0 + j * R;
+
+    // Scores of this lane's rows (log2 domain); -inf past the split.
+    float s[GM][kSteps];
 #pragma unroll
-      for (int i = 0; i < kN; ++i) sAcc[warp][g][d0 + i] = acc[g][i];
+    for (int i = 0; i < kSteps; ++i) {
+      const int rr = tile_row(i);
+      float kx[kN];
+      if (dlive) {
+        C::load(sk + rr * row_bytes, kx);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kN; ++e) kx[e] = 0.f;
+      }
+      const bool live = t0 + rr < r1;
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kN; ++e) dot = fmaf(qr[g][e], kx[e], dot);
+        for (int off = lpr / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[g][i] = !live ? -INFINITY : (none ? kNegInf : dot);
+      }
+    }
+
+    // Tile max over the warp's rows, one rescale, then p = 2^(s - m).
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float mx = s[g][0];
+#pragma unroll
+      for (int i = 1; i < kSteps; ++i) mx = fmaxf(mx, s[g][i]);
+      for (int off = lpr; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = m_new == m[g] ? 1.f : exp2f(m[g] - m_new);
+      m[g] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kSteps; ++i) {
+        s[g][i] = s[g][i] == -INFINITY ? 0.f : exp2f(s[g][i] - m_new);
+        sum += s[g][i];
+      }
+      l[g] = fmaf(l[g], alpha, sum);
+#pragma unroll
+      for (int e = 0; e < kN; ++e) acc[g][e] *= alpha;
+    }
+
+    // acc += p . V over the same rows (zero-filled past the split).
+    if (dlive) {
+#pragma unroll
+      for (int i = 0; i < kSteps; ++i) {
+        float vx[kN];
+        C::load(sv + tile_row(i) * row_bytes, vx);
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+#pragma unroll
+          for (int e = 0; e < kN; ++e) acc[g][e] = fmaf(s[g][i], vx[e], acc[g][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Sum l and acc over the warp's row groups (m is already warp-uniform).
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    for (int off = lpr; off < 32; off <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+    }
+  }
+
+  // Then over the warps, through the ring's memory: red[warp][g] holds
+  // acc[0 .. D), m, l.
+  constexpr int kRed = kMaxD + 2;
+  float* red = reinterpret_cast<float*>(ring);
+  __syncthreads();  // every lane is past its last read of the ring
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float* r = red + (warp * GM + g) * kRed;
+      if (dlive)
+#pragma unroll
+        for (int e = 0; e < kN; ++e) r[sub * kN + e] = acc[g][e];
+      if (lane == 0) {
+        r[kMaxD] = m[g];
+        r[kMaxD + 1] = l[g];
+      }
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < GM * p.D; i += kThreads) {
     const int g = i / p.D;
     const int d = i - g * p.D;
     if (g0 + g >= G) break;
-    float s = 0.f;
+    float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += sAcc[w][g][d];
-    p.part_acc[(((int64_t)b * p.H + kvh * G + g0 + g) * p.n_chunks + chunk) *
-                   p.D + d] = s;
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red[(w * GM + g) * kRed + kMaxD]);
+    float num = 0.f, den = 0.f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* r = red + (w * GM + g) * kRed;
+        const float wt = exp2f(r[kMaxD] - M);  // 0 for a warp with no rows
+        num = fmaf(wt, r[d], num);
+        den = fmaf(wt, r[kMaxD + 1], den);
+      }
+    }
+    float* out = p.part +
+                 (((int64_t)b * p.H + kvh * G + g0 + g) * p.S + split) * (p.D + 2);
+    out[d] = num;
+    if (d == 0) {
+      out[p.D] = M == -INFINITY ? kNegInf : M;  // an empty split
+      out[p.D + 1] = den;
+    }
   }
 }
 
-// Pass 2: block (h, b), thread d: out = sum_c e^(m_c - M) acc_c / sum_c
-// e^(m_c - M) l_c over the chunks that pass 1 wrote.
+// Pass 2: block (h, b), thread d: out = sum_s 2^(m_s - M) acc_s / sum_s
+// 2^(m_s - M) l_s over the S splits.
 template <typename T>
 __global__ void __launch_bounds__(kMaxD) decode_combine_kernel(const Params p) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d = threadIdx.x;
-  bool none;
-  const int n_valid = valid_rows(p, b, &none);
-  const int nc = (n_valid + kChunk - 1) / kChunk;
   const int64_t row = (int64_t)b * p.H + h;
-  const float* ml = p.part_ml + row * p.n_chunks * 2;
-  const float* acc = p.part_acc + row * p.n_chunks * p.D;
-  float m = kNegInf;
-  for (int c = 0; c < nc; ++c) m = fmaxf(m, ml[2 * c]);
+  const int w = p.D + 2;
+  const float* part = p.part + row * p.S * w;
+  float M = kNegInf;
+  for (int s = 0; s < p.S; ++s) M = fmaxf(M, part[s * w + p.D]);
   float num = 0.f, den = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    const float w = expf(ml[2 * c] - m);
-    den = fmaf(w, ml[2 * c + 1], den);
-    if (d < p.D) num = fmaf(w, acc[(int64_t)c * p.D + d], num);
+  for (int s = 0; s < p.S; ++s) {
+    const float wt = exp2f(part[s * w + p.D] - M);
+    den = fmaf(wt, part[s * w + p.D + 1], den);
+    if (d < p.D) num = fmaf(wt, part[s * w + d], num);
   }
   if (d < p.D) {
     T* o = static_cast<T*>(p.o) + row * p.D;
@@ -266,12 +372,17 @@ __global__ void __launch_bounds__(kMaxD) decode_combine_kernel(const Params p) {
 
 template <typename T, int GM>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int kN = Vec<T>::kN;
+  constexpr int kN = Chunk<T>::kN;
+  // Above 48 KB of dynamic shared memory a kernel must ask, once.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_split_kernel<T, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kRingBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   int lpr = 1;
   while (lpr * kN < p.D) lpr <<= 1;  // D <= 128 keeps lpr <= 32
   const int G = p.H / p.KV;
-  const dim3 grid1(p.n_chunks, p.KV * ((G + GM - 1) / GM), p.B);
-  decode_chunk_kernel<T, GM><<<grid1, kThreads, 0, stream>>>(p, lpr);
+  const dim3 grid1(p.S, p.KV * ((G + GM - 1) / GM), p.B);
+  decode_split_kernel<T, GM><<<grid1, kThreads, kRingBytes, stream>>>(p, lpr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid2(p.H, p.B);
@@ -281,43 +392,39 @@ int launch(const Params& p, cudaStream_t stream) {
 
 template <typename T>
 int dispatch(const Params& p, cudaStream_t stream) {
-  const int G = p.H / p.KV;
-  if (G == 1) return launch<T, 1>(p, stream);
-  if (G <= 4) return launch<T, 4>(p, stream);
-  return launch<T, 8>(p, stream);
+  switch (p.H / p.KV) {
+    case 1: return launch<T, 1>(p, stream);
+    case 2: return launch<T, 2>(p, stream);
+    case 3: return launch<T, 3>(p, stream);
+    case 4: return launch<T, 4>(p, stream);
+    default: return launch<T, 8>(p, stream);
+  }
 }
 
 }  // namespace
 
-// Chunks of kChunk cache rows that pass 1 may write per (batch row, head):
-// the wrapper sizes the scratch buffers with it.
-extern "C" int decode_attention_chunks(int T) {
-  return (T + kChunk - 1) / kChunk;
-}
-
-// dtype: 0 = float32, 1 = bfloat16. strides: 8 element strides, (b, h) of
+// dtype: 0 = float32, 1 = bfloat16. kv_len: [B] int32 on the card, or null
+// and then every row has kv_len_all. strides: 8 element strides, (b, h) of
 // q, (b, t, kv) of k and of v; the last dimension of every tensor is
-// contiguous and out is a contiguous [B, H, D]. part_ml holds
-// B * H * decode_attention_chunks(T) * 2 floats, part_acc
-// B * H * decode_attention_chunks(T) * D. Returns the cudaError_t of the
-// launches.
+// contiguous and out is a contiguous [B, H, D]. part holds B * H *
+// n_splits * (D + 2) floats. Returns the cudaError_t of the launches.
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
                                     const void* v, const int* kv_len,
-                                    void* out, float* part_ml,
-                                    float* part_acc, const int64_t* strides,
-                                    int B, int T, int H, int KV, int D,
+                                    int kv_len_all, void* out, float* part,
+                                    const int64_t* strides, int B, int T,
+                                    int H, int KV, int D, int n_splits,
                                     float scale, void* stream) {
-  if (B <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || D % 8 != 0 || D <= 0 ||
-      D > kMaxD)
+  if (B <= 0 || B > 65535 || T <= 0 || KV <= 0 || H % KV != 0 || H > 65535 ||
+      D % 8 != 0 || D <= 0 || D > kMaxD || n_splits <= 0 || n_splits > T)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.kv_len = kv_len;
+  p.kv_len_all = kv_len_all;
   p.o = out;
-  p.part_ml = part_ml;
-  p.part_acc = part_acc;
+  p.part = part;
   p.q_sb = strides[0];
   p.q_sh = strides[1];
   p.k_sb = strides[2];
@@ -331,8 +438,8 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
   p.H = H;
   p.KV = KV;
   p.D = D;
-  p.n_chunks = decode_attention_chunks(T);
-  p.scale = scale;
+  p.S = n_splits;
+  p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, st);
   if (dtype == 0) return dispatch<float>(p, st);

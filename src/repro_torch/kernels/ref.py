@@ -11,6 +11,9 @@ scores, masked scores at -1e30, a full softmax, the output cast to q's
 type. The kernels reorder the sums (online softmax), so they agree with
 these within 2e-5 in float32 and 4e-2 in bfloat16.
 
+``ref_decode_attention_split`` is a plain model of the decode kernel's
+split and combine, for the tests only.
+
 The CPU routes of :mod:`repro_torch.kernels.cpm` and
 :mod:`repro_torch.kernels.attention` and the tests use them;
 ``chip_smoke.py`` holds the kernels against them on the card.
@@ -29,6 +32,7 @@ __all__ = [
     "ref_combined_lb",
     "ref_flash_attention",
     "ref_decode_attention",
+    "ref_decode_attention_split",
 ]
 
 NEG_INF = -1e30
@@ -117,3 +121,50 @@ def ref_decode_attention(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v.to(torch.float32))
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def ref_decode_attention_split(
+    q: torch.Tensor,  # [B, H, D]
+    k: torch.Tensor,  # [B, T, KV, D]
+    v: torch.Tensor,  # [B, T, KV, D]
+    kv_len,           # int, [] or [B] valid cache length
+    n_splits: int,
+) -> torch.Tensor:
+    """The decode kernel's plan in plain PyTorch: split s of row b covers
+    rows ``[s * n_b // S, (s + 1) * n_b // S)`` with ``n_b = min(kv_len[b],
+    T)`` (all T rows, each masked at -1e30, when kv_len[b] <= 0); each split
+    gives its max m, sum l and accumulator in float32 (an empty one m =
+    -1e30, l = 0, acc = 0), and the splits are combined with weights
+    exp(m_s - max m)."""
+    B, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    S = int(n_splits)
+    qg = q.reshape(B, KV, H // KV, D).to(torch.float32) / math.sqrt(D)
+    lens = torch.as_tensor(kv_len).reshape(-1).expand(B).tolist()
+    out = torch.empty(qg.shape, dtype=torch.float32, device=q.device)
+    for b, n in enumerate(lens):
+        none = n <= 0
+        n = T if none else min(n, T)
+        ms, ls, accs = [], [], []
+        for s in range(S):
+            lo, hi = s * n // S, (s + 1) * n // S
+            if hi == lo:
+                ms.append(qg.new_full(qg.shape[1:3], NEG_INF))
+                ls.append(qg.new_zeros(qg.shape[1:3]))
+                accs.append(qg.new_zeros(qg.shape[1:]))
+                continue
+            kb = k[b, lo:hi].to(torch.float32)
+            sc = torch.einsum("kgd,tkd->kgt", qg[b], kb)
+            if none:
+                sc = torch.full_like(sc, NEG_INF)
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(torch.einsum("kgt,tkd->kgd", p, v[b, lo:hi].to(torch.float32)))
+        m = torch.stack(ms)  # [S, KV, G]
+        w = torch.exp(m - m.amax(dim=0))
+        num = (w[..., None] * torch.stack(accs)).sum(dim=0)
+        den = (w * torch.stack(ls)).sum(dim=0)
+        out[b] = num / den.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)

@@ -131,6 +131,61 @@ def test_decode_plain_matches_pallas_and_oracle(B, H, KV, D, T, kv_len, dtype):
     assert attention.launches == before
 
 
+@pytest.mark.parametrize("n_sm", [1, 8, 132])
+@pytest.mark.parametrize("T", [1, 63, 64, 545, 4096, 32768])
+def test_decode_split_plan(n_sm, T):
+    """S >= 1; no split under DECODE_MIN_SPLIT_ROWS rows of T unless S = 1;
+    about DECODE_WAVES waves of blocks until T caps S; and the block count
+    grows with B * KV: never below the waves (or T's cap), and once B * KV
+    alone fills them, S = 1 and one more (b, kv) pair is one more block."""
+    rows = attention.DECODE_MIN_SPLIT_ROWS
+    target = attention.DECODE_WAVES * attention.DECODE_BLOCKS_PER_SM * n_sm
+    prev = 0
+    for bkv in range(1, 2 * target + 2):
+        S = attention.decode_splits(bkv, 1, T, n_sm)
+        assert S >= 1
+        assert S == 1 or T // S >= rows
+        assert S == attention.decode_splits(1, bkv, T, n_sm)
+        blocks = S * bkv
+        if S < T // rows:  # not capped by T: about the waves asked for
+            assert target <= blocks < target + bkv
+        assert blocks >= min(target, bkv * max(1, T // rows))
+        if bkv >= target:
+            assert S == 1
+            assert bkv == target or blocks == prev + 1
+        prev = blocks
+
+
+@pytest.mark.parametrize(
+    "B,H,KV,D,T,kv_len,n_splits",
+    [
+        (2, 8, 2, 32, 64, 40, 3),
+        (3, 6, 2, 16, 100, [1, 2, 0], 4),              # n_b < S: empty splits
+        (4, 6, 2, 16, 64, [1, 17, 64, 100], 5),        # ragged, one past T
+        (2, 4, 1, 16, 32, [0, 32], 2),                 # an empty row: uniform
+        (2, 24, 8, 128, 96, [95, 3], 7),               # llama3.2-3b heads
+        (1, 8, 8, 32, 128, 1, 1),                      # one split
+    ],
+)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_model_matches_pallas_and_oracle(B, H, KV, D, T, kv_len, n_splits, dtype):
+    """The plain model of the kernel's split and combine against the JAX
+    oracle and the Pallas kernel (interpret mode), as the test above."""
+    rng = np.random.default_rng(B * 31 + H + T + n_splits)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng, shape, dtype) for shape in ((B, H, D), (B, T, KV, D), (B, T, KV, D))
+    )
+    tol = DTYPES[dtype][2]
+    lens_j = jnp.asarray(kv_len, jnp.int32)
+    got = ref.ref_decode_attention_split(qt, kt, vt, torch.tensor(kv_len), n_splits)
+    assert got.dtype == qt.dtype and got.shape == (B, H, D)
+    block = 32 if T % 32 == 0 else T
+    _close(got, jops.decode_attention(qj, kj, vj, lens_j, block).astype(jnp.float32), tol)
+    _close(got, jref_decode(qj, kj, vj, lens_j).astype(jnp.float32), tol)
+    if isinstance(kv_len, int):
+        assert torch.equal(ref.ref_decode_attention_split(qt, kt, vt, kv_len, n_splits), got)
+
+
 def test_wrappers_reject_bad_inputs():
     q = torch.zeros((1, 8, 4, 16))
     k = torch.zeros((1, 8, 3, 16))
@@ -166,7 +221,11 @@ def test_library_path_is_keyed_on_the_source(tmp_path):
 def test_cuda_attention_kernels_match_plain_versions_on_card():
     """On a card: both kernels against their plain versions at the stated
     tolerances (elementwise and per output row), with ragged S and T, GQA
-    and MQA, per-row lengths. The bf16 flash kernel is also swept over the
+    and MQA, per-row lengths. The decode kernel is swept over D = 16, 64,
+    96, 128, G = 1, 3, 4, 8, row lengths 0, 1, S - 1, mid-split, T - 1, T
+    and T + 5, a T that ends mid-tile and one with empty splits, on K and V
+    as strided views of one fused cache, and an int kv_len against the
+    equal tensor (torch.equal). The bf16 flash kernel is also swept over the
     edges of its tiles: every TMA box width and swizzle (D = 16, 48, 96,
     128), G = 1, 3, 4, 8, and S = T ending mid-tile, with folded rows that
     cross the 64-row warpgroup boundary inside one query, causal or not,
@@ -204,6 +263,29 @@ def test_cuda_attention_kernels_match_plain_versions_on_card():
             kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
             got = tops.decode_attention(q, k, v, kl)
             close(got, ref.ref_decode_attention(q, k, v, kl), tol, row_tol)
+
+        # Decode sweep: every row length that ends a split or a tile
+        # differently, on K and V as strided views of one fused cache. T =
+        # 1000 is no multiple of a tile's rows (32 in bf16, 16 in f32 at D =
+        # 128); T = 130 gives two splits, so length 1 leaves one empty.
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        for D, G, T in itertools.product((16, 64, 96, 128), (1, 3, 4, 8), (1000, 130)):
+            B, KV = 7, 2
+            H = G * KV
+            S = attention.decode_splits(B, KV, T, n_sm)
+            lens = [0, 1, max(S - 1, 1), T // S + T // (2 * S), T - 1, T, T + 5]
+            q = rn(B, H, D)
+            kv = rn(B, T, 2 * KV, D)  # views with the head stride of a fused cache
+            k, v = kv[:, :, :KV], kv[:, :, KV:]
+            kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            before = attention.launches["decode_attention"]
+            got = tops.decode_attention(q, k, v, kl)
+            assert attention.launches["decode_attention"] == before + 1
+            close(got, ref.ref_decode_attention(q, k, v, kl), tol, row_tol)
+            for n in (0, 1, T - 1, T + 5):  # an int by value == the equal tensor
+                full = torch.full((B,), n, dtype=torch.int32, device="cuda")
+                assert torch.equal(tops.decode_attention(q, k, v, n),
+                                   tops.decode_attention(q, k, v, full))
 
     def rn16(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
