@@ -9,8 +9,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/``, then:
 
   0. prints the card's name and power limit, the torch and CUDA versions,
-     the build time, and the registers, spills and shared memory of each
-     bf16 flash instantiation;
+     the build time, the registers, spills and shared memory of each bf16
+     flash instantiation, and the registers and spills of each decode one;
   1. holds every kernel entry point against its plain PyTorch version on
      the card (tolerance 0: ``torch.equal``) at the offline main-path
      shape, the serving shape and ragged shapes, and times both with CUDA
@@ -30,10 +30,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      phi3-mini's (D 96) and seamless-m4t-medium's (D 64), ragged lengths,
      the reference tests' shapes and long caches, and times kernel, plain
      version and PyTorch's ``scaled_dot_product_attention`` (the
-     yardstick; the port never calls it); a flash row also gives its
-     TFLOP/s, share of its bound and the host time of one wrapper call,
-     and in bf16 the device times alone (CUDA graphs of the calls) of
-     kernel and SDPA;
+     yardstick; the port never calls it); each row also gives its share
+     of its bound and the host time of one wrapper call, a flash row its
+     TFLOP/s, and every decode row and the bf16 flash rows the device
+     times alone (CUDA graphs of the calls) of kernel and SDPA;
   5b. serves llama3.2-3b at its full widths with seed-0 bf16 weights: 4
      requests of 512-token prompts through the prefill step, then the
      serve loop decodes the prompts into the KV cache and generates 32
@@ -86,7 +86,7 @@ GOLDEN_FLEET_COUNTERS = dict(
 )
 
 # The port's own kernels (csrc/*.cu), reported by name in every profile.
-PORT_KERNELS = ("cpm_rows_kernel", "flash_fwd_", "decode_chunk_kernel",
+PORT_KERNELS = ("cpm_rows_kernel", "flash_fwd_", "decode_split_kernel",
                 "decode_combine_kernel")
 
 SERVE_JOBS = 200
@@ -342,6 +342,36 @@ def decode_bound(torch, q, k, lens: list[int]) -> tuple[float, str]:
     return _larger(nbytes, 4 * H * D * rows, rate)
 
 
+def library_device_ms(torch, fn):
+    """``graph_ms`` of a PyTorch yardstick call, or None when this build of
+    PyTorch refuses it (as :func:`library_ms`)."""
+    try:
+        return graph_ms(torch, fn)
+    except RuntimeError:
+        return None
+
+
+def decode_ptxas(log: str) -> list[dict]:
+    """Registers and spills of each decode instantiation (split kernel by
+    dtype and group heads GM, and the combine kernel by dtype), from
+    nvcc's ``-Xptxas -v`` report."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"(decode_(?:split|combine)_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?", line)
+            cur = None if m is None else dict(
+                kernel=m.group(1), dtype="bf16" if m.group(2) != "f" else "f32",
+                GM=int(m.group(3)) if m.group(3) else None)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append(cur)
+            cur = None
+    return sorted(out, key=lambda r: (r["kernel"], r["dtype"], r["GM"] or 0))
+
+
 def library_ms(torch, fn):
     """ms of one PyTorch call used as a yardstick (never by the port), or
     None with the reason when this build of PyTorch refuses it."""
@@ -383,21 +413,27 @@ def attention_kernels(np, torch) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     rows, max_err = {}, {"flash_attention": 0.0, "decode_attention": 0.0}
 
-    def record(name, label, errs, kern, plain, lib, b, flops=None, **shape):
+    def record(name, label, errs, kern, plain, lib, b, flops=None, int_kern=None,
+               **shape):
         err, rel = errs
         ms = cuda_ms(torch, kern)
         plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
         lib_ms, lib_err = library_ms(torch, lib)
         max_err[name] = max(max_err[name], err)
-        extra = {}
-        if flops is not None:  # flash: the rate, and the host time of a call
-            extra = dict(tflop_s=flops / ms / 1e9, share_of_bound=b[0] / ms,
-                         host_us_per_call=host_us(torch, kern))
-        if flops is not None and shape["dtype"] == "torch.bfloat16":
-            # The device times alone (no host between launches), SDPA's too.
+        # Share of the bound, and the host time of one wrapper call.
+        extra = dict(share_of_bound=b[0] / ms, host_us_per_call=host_us(torch, kern))
+        if flops is not None:  # flash: the rate
+            extra.update(tflop_s=flops / ms / 1e9)
+        if int_kern is not None:  # decode with an int kv_len, as the serve step calls it
+            extra.update(host_us_per_call_int_kv_len=host_us(torch, int_kern))
+        if flops is None or shape["dtype"] == "torch.bfloat16":
+            # The device times alone (no host between launches), SDPA's too:
+            # every decode row, the bf16 flash rows.
             dev = graph_ms(torch, kern)
-            extra.update(device_ms=dev, device_tflop_s=flops / dev / 1e9,
-                         library_device_ms=graph_ms(torch, lib))
+            extra.update(device_ms=dev, device_share_of_bound=b[0] / dev,
+                         library_device_ms=library_device_ms(torch, lib))
+            if flops is not None:
+                extra.update(device_tflop_s=flops / dev / 1e9)
         emit("attention", kernel=name, shape=label, max_abs_err=err,
              max_row_rel_err=rel, ms=ms,
              plain_ms=plain_ms, library_ms=lib_ms, library_error=lib_err,
@@ -443,6 +479,7 @@ def attention_kernels(np, torch) -> dict:
             ("B8_T4096", 8, 24, 8, 128, 4096, [1, 4096, 2048, 100, 4095, 3000, 17, 1234], dt),
             ("B8_T32768", 8, 24, 8, 128, 32768,
              [1, 32768, 16384, 100, 32767, 30000, 17, 20000], dt),
+            ("B8_T32768_full", 8, 24, 8, 128, 32768, [32768] * 8, dt),  # phase 5c's
         ]
     decode += [("test_kernels", B, H, KV, D, T, [n] * B, f32) for B, H, KV, D, T, n in (
         (2, 8, 2, 128, 1024, 700), (1, 4, 4, 64, 512, 512),
@@ -454,6 +491,12 @@ def attention_kernels(np, torch) -> dict:
         want = ref.ref_decode_attention(q, k, v, kl)
         errs = check_attention(torch, "decode_attention", got, want, dt,
                                f"{label} {(B, H, KV, D, T, lens, dt)}")
+        int_kern = None
+        if len(set(lens)) == 1:  # one length: an int kv_len gives the same bits
+            n = lens[0]
+            check(torch.equal(attention.decode_attention(q, k, v, n), got),
+                  f"decode_attention: int kv_len != tensor at {label}")
+            int_kern = lambda: attention.decode_attention(q, k, v, n)  # noqa: E731
         q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(T, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
         record("decode_attention", label, errs,
@@ -461,7 +504,7 @@ def attention_kernels(np, torch) -> dict:
                lambda: ref.ref_decode_attention(q, k, v, kl),
                lambda: F.scaled_dot_product_attention(
                    q4, kt, vt, attn_mask=mask, enable_gqa=True),
-               decode_bound(torch, q, k, lens),
+               decode_bound(torch, q, k, lens), int_kern=int_kern,
                B=B, H=H, KV=KV, D=D, T=T, kv_len=lens, dtype=str(dt))
         del q, k, v, q4, kt, vt, got, want, mask
     torch.cuda.empty_cache()
@@ -665,6 +708,8 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     emit("flash_bf16_ptxas", instantiations=flash_ptxas(
         build.build_log(build.SOURCES["flash_attention"]), build.load("flash_attention")))
+    emit("decode_ptxas", instantiations=decode_ptxas(
+        build.build_log(build.SOURCES["decode_attention"])))
 
     # -- 1. kernels against their plain versions ------------------------------
     rng = np.random.default_rng(0)
