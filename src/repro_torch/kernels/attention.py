@@ -120,20 +120,24 @@ def flash_attention(
 
 # The decode kernel's split plan (csrc/decode_attention.cu, points 1-2).
 # A block holds a 64 KB ring, so three fit an SM's shared memory; the plan
-# asks for about two waves of blocks, and no split under 64 cache rows.
+# asks for at most two full waves of blocks, and no split under 64 rows.
 DECODE_BLOCKS_PER_SM = 3
 DECODE_WAVES = 2
 DECODE_MIN_SPLIT_ROWS = 64
 
 _sm_counts: dict[int, int] = {}
+# (dtype, device, shapes and strides of q, k, v) -> (S, ctypes strides):
+# what a decode call checks and derives from its layout, once per layout.
+_decode_plans: dict[tuple, tuple] = {}
 
 
 def decode_splits(B: int, KV: int, T: int, n_sm: int) -> int:
-    """Splits S of the cache per (batch row, kv head): the fewest that give
-    ``B * KV * S`` about ``DECODE_WAVES`` waves of blocks on ``n_sm`` SMs,
-    with no split covering fewer than ``DECODE_MIN_SPLIT_ROWS`` rows of T
-    (S = 1 when T itself is shorter)."""
-    want = -(-DECODE_WAVES * DECODE_BLOCKS_PER_SM * n_sm // (B * KV))
+    """Splits S of the cache per (batch row, kv head): the most that keep
+    ``B * KV * S`` within ``DECODE_WAVES`` full waves of blocks on ``n_sm``
+    SMs (a few blocks past a full wave would run alone, after the rest),
+    with no split covering fewer than ``DECODE_MIN_SPLIT_ROWS`` rows of T;
+    at least 1."""
+    want = DECODE_WAVES * DECODE_BLOCKS_PER_SM * n_sm // (B * KV)
     return max(1, min(want, T // DECODE_MIN_SPLIT_ROWS))
 
 
@@ -143,6 +147,23 @@ def _sm_count(device: torch.device) -> int:
     if n is None:
         n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return n
+
+
+def _decode_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The split count and the kernel's stride array for this call's layout,
+    checked once per layout; later calls check only the data pointers."""
+    key = (q.dtype, q.device, q.shape, q.stride(), k.shape, k.stride(), v.stride())
+    plan = _decode_plans.get(key)
+    if plan is None:
+        _kernel_layout(8, q, k, v)
+        if len(_decode_plans) >= 256:
+            _decode_plans.clear()
+        B, T, KV = q.shape[0], k.shape[1], k.shape[2]
+        plan = _decode_plans[key] = (
+            decode_splits(B, KV, T, _sm_count(q.device)), _strides(q, k, v))
+    elif (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("rows must be 16-byte aligned")
+    return plan
 
 
 def decode_attention(
@@ -173,7 +194,9 @@ def decode_attention(
             raise ValueError(f"kv_len must be [] or [B], got {tuple(kv_len.shape)}")
         if kv_len.device != q.device:
             raise ValueError(f"kv_len is on {kv_len.device}, expected {q.device}")
-        lens = kv_len.to(torch.int32).reshape(-1).expand(B).contiguous()
+        lens = kv_len
+        if lens.dtype != torch.int32 or lens.shape != (B,) or not lens.is_contiguous():
+            lens = lens.to(torch.int32).reshape(-1).expand(B).contiguous()
     else:
         # Clamped into int32 without changing the result: <= 0 masks every
         # row, >= T takes every row.
@@ -182,14 +205,13 @@ def decode_attention(
         return ref.ref_decode_attention(q, k, v, len_all if lens is None else lens)
     from repro_torch.kernels.build import load
 
-    _kernel_layout(8, q, k, v)
-    S = decode_splits(B, KV, T, _sm_count(q.device))
+    S, strides = _decode_plan(q, k, v)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     part = torch.empty((B, H, S, D + 2), dtype=torch.float32, device=q.device)
     err = load("decode_attention").decode_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), len_all, out.data_ptr(),
-        part.data_ptr(), _strides(q, k, v), B, T, H, KV, D, S, 1.0 / math.sqrt(D),
+        part.data_ptr(), strides, B, T, H, KV, D, S, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_if(err, "decode_attention_fwd")

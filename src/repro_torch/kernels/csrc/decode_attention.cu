@@ -18,7 +18,9 @@
 // lacks is bytes in flight. The design:
 //   1. Grid (split, kv head, batch row): one block serves all G heads of its
 //      kv head, so each cache row is read once for the G heads. The wrapper
-//      picks the split count S for about two waves of blocks on the card.
+//      picks the split count S for at most two full waves of blocks on the
+//      card (a few blocks past a full wave would run alone at one block's
+//      rate, after the rest are done).
 //   2. Split s of row b covers rows [s * n_b / S, (s + 1) * n_b / S), with
 //      n_b read on the device, so every block of a ragged batch does about
 //      the same share of its own row and no block exists only to exit. A
@@ -130,6 +132,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Sum of x over the lpr lanes (a power of two) of this lane's row group.
+// The rounds are unrolled with a warp-uniform predicate rather than a loop
+// bounded by lpr, so the reductions of all heads and row steps of a tile
+// interleave instead of waiting on one another's shuffles.
+__device__ __forceinline__ float sum_row_group(float x, int lpr) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+    if (off < lpr) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
 // Pass 1: block (split, kv head x head group, b); GM is the most group
@@ -246,8 +259,7 @@ __global__ void __launch_bounds__(kThreads)
         float dot = 0.f;
 #pragma unroll
         for (int e = 0; e < kN; ++e) dot = fmaf(qr[g][e], kx[e], dot);
-        for (int off = lpr / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        dot = sum_row_group(dot, lpr);
         s[g][i] = !live ? -INFINITY : (none ? kNegInf : dot);
       }
     }
@@ -258,8 +270,9 @@ __global__ void __launch_bounds__(kThreads)
       float mx = s[g][0];
 #pragma unroll
       for (int i = 1; i < kSteps; ++i) mx = fmaxf(mx, s[g][i]);
-      for (int off = lpr; off < 32; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+        if (off >= lpr) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[g], mx);
       const float alpha = m_new == m[g] ? 1.f : exp2f(m[g] - m_new);
       m[g] = m_new;
@@ -292,7 +305,9 @@ __global__ void __launch_bounds__(kThreads)
   // Sum l and acc over the warp's row groups (m is already warp-uniform).
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    for (int off = lpr; off < 32; off <<= 1) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      if (off < lpr) continue;
       l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
 #pragma unroll
       for (int e = 0; e < kN; ++e)

@@ -135,9 +135,10 @@ def test_decode_plain_matches_pallas_and_oracle(B, H, KV, D, T, kv_len, dtype):
 @pytest.mark.parametrize("T", [1, 63, 64, 545, 4096, 32768])
 def test_decode_split_plan(n_sm, T):
     """S >= 1; no split under DECODE_MIN_SPLIT_ROWS rows of T unless S = 1;
-    about DECODE_WAVES waves of blocks until T caps S; and the block count
-    grows with B * KV: never below the waves (or T's cap), and once B * KV
-    alone fills them, S = 1 and one more (b, kv) pair is one more block."""
+    within DECODE_WAVES full waves of blocks and less than one (b, kv) pair
+    short of them until T caps S; and the block count grows with B * KV:
+    once B * KV alone fills the waves, S = 1 and one more (b, kv) pair is
+    one more block."""
     rows = attention.DECODE_MIN_SPLIT_ROWS
     target = attention.DECODE_WAVES * attention.DECODE_BLOCKS_PER_SM * n_sm
     prev = 0
@@ -147,9 +148,9 @@ def test_decode_split_plan(n_sm, T):
         assert S == 1 or T // S >= rows
         assert S == attention.decode_splits(1, bkv, T, n_sm)
         blocks = S * bkv
-        if S < T // rows:  # not capped by T: about the waves asked for
-            assert target <= blocks < target + bkv
-        assert blocks >= min(target, bkv * max(1, T // rows))
+        if S < T // rows and bkv <= target:  # not capped: the waves asked for
+            assert target - bkv < blocks <= target
+        assert blocks >= min(target - bkv + 1, bkv * max(1, T // rows))
         if bkv >= target:
             assert S == 1
             assert bkv == target or blocks == prev + 1
