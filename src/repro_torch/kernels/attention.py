@@ -119,13 +119,13 @@ def flash_attention(
 
 
 # The decode kernel's split plan (csrc/decode_attention.cu, points 1-2).
-# A block holds a 64 KB ring, so three fit an SM's shared memory; the plan
-# asks for at most two full waves of blocks, and no split under 64 rows.
-DECODE_BLOCKS_PER_SM = 3
+# A block holds a 48 KB ring and at most 128 registers a thread (up to four
+# group heads), so four fit an SM; the plan asks for at most two full waves
+# of blocks, and no split under 64 rows.
+DECODE_BLOCKS_PER_SM = 4
 DECODE_WAVES = 2
 DECODE_MIN_SPLIT_ROWS = 64
 
-_sm_counts: dict[int, int] = {}
 # (dtype, device, shapes and strides of q, k, v) -> (S, ctypes strides):
 # what a decode call checks and derives from its layout, once per layout.
 _decode_plans: dict[tuple, tuple] = {}
@@ -141,14 +141,6 @@ def decode_splits(B: int, KV: int, T: int, n_sm: int) -> int:
     return max(1, min(want, T // DECODE_MIN_SPLIT_ROWS))
 
 
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    n = _sm_counts.get(index)
-    if n is None:
-        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return n
-
-
 def _decode_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     """The split count and the kernel's stride array for this call's layout,
     checked once per layout; later calls check only the data pointers."""
@@ -159,8 +151,8 @@ def _decode_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
         if len(_decode_plans) >= 256:
             _decode_plans.clear()
         B, T, KV = q.shape[0], k.shape[1], k.shape[2]
-        plan = _decode_plans[key] = (
-            decode_splits(B, KV, T, _sm_count(q.device)), _strides(q, k, v))
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        plan = _decode_plans[key] = (decode_splits(B, KV, T, n_sm), _strides(q, k, v))
     elif (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("rows must be 16-byte aligned")
     return plan

@@ -26,12 +26,15 @@
 //      the same share of its own row and no block exists only to exit. A
 //      split with no rows (n_b < S) writes m = -1e30, l = 0, acc = 0, which
 //      the combine weighs 0.
-//   3. K and V tiles stream through a ring of kStages shared-memory stages
-//      by 16-byte cp.async.cg copies (commit_group / wait_group): each
-//      thread keeps kStages - 1 tiles of its own copies in flight (24
-//      copies, 384 bytes; 48 KB a block) while it computes on the oldest.
-//      Every thread copies exactly the 16-byte chunks it later reads, so
-//      the ring needs no block barrier.
+//   3. K and V tiles stream through a ring of kStages = 3 shared-memory
+//      stages (48 KB) by 16-byte cp.async.cg copies (commit_group /
+//      wait_group): each thread keeps two tiles of its own copies in flight
+//      (16 copies, 256 bytes; 32 KB a block, 128 KB an SM at four blocks)
+//      while it computes on the oldest. Every thread copies exactly the
+//      16-byte chunks it later reads, so the ring needs no block barrier.
+//      The per-tile arithmetic, not the copies, is what the warps wait on,
+//      so the ring is sized for four blocks (16 warps) an SM rather than
+//      for a deeper ring.
 //   4. One pass with an online softmax: per tile, the G x R scores from
 //      shared memory with q in registers (base-2 exponent, log2(e) folded
 //      into q), the running max m and sum l per head, the accumulator
@@ -61,8 +64,12 @@ constexpr int kMaxD = 128;
 // wider row): 32 rows of bf16 or 16 of float32 at D = 128.
 constexpr int kSteps = 4;
 constexpr int kTileBytes = kSteps * kWarps * 32 * 16;
-constexpr int kStages = 4;  // ring depth: 4 x (K + V) = 64 KB a block
+constexpr int kStages = 3;  // ring depth: 3 x (K + V) = 48 KB a block
 constexpr int kRingBytes = kStages * 2 * kTileBytes;
+static_assert(kRingBytes <= 48 * 1024, "more needs cudaFuncSetAttribute");
+// Blocks an SM for up to four group heads (attention.DECODE_BLOCKS_PER_SM):
+// four rings fit its shared memory, and at most 128 registers a thread.
+constexpr int kBlocksPerSm = 4;
 
 struct Params {
   const void* q;      // [B, H, D], strides q_sb, q_sh
@@ -134,6 +141,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// 2^x in one MUFU instruction (2 ulp; results below 2^-126 flush to 0, and
+// -inf gives 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Sum of x over the lpr lanes (a power of two) of this lane's row group.
 // The rounds are unrolled with a warp-uniform predicate rather than a loop
 // bounded by lpr, so the reductions of all heads and row steps of a tile
@@ -149,7 +164,7 @@ __device__ __forceinline__ float sum_row_group(float x, int lpr) {
 // heads one block serves (heads g0 .. g0 + GM - 1 of its kv head). lpr
 // lanes (a power of two) read one cache row, chunk `sub` each.
 template <typename T, int GM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, GM <= 4 ? kBlocksPerSm : 1)
     decode_split_kernel(const Params p, int lpr) {
   using C = Chunk<T>;
   constexpr int kN = C::kN;
@@ -274,12 +289,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int off = 1; off < 32; off <<= 1)
         if (off >= lpr) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[g], mx);
-      const float alpha = m_new == m[g] ? 1.f : exp2f(m[g] - m_new);
+      const float alpha = m_new == m[g] ? 1.f : fast_exp2(m[g] - m_new);
       m[g] = m_new;
       float sum = 0.f;
 #pragma unroll
       for (int i = 0; i < kSteps; ++i) {
-        s[g][i] = s[g][i] == -INFINITY ? 0.f : exp2f(s[g][i] - m_new);
+        s[g][i] = s[g][i] == -INFINITY ? 0.f : fast_exp2(s[g][i] - m_new);
         sum += s[g][i];
       }
       l[g] = fmaf(l[g], alpha, sum);
@@ -318,6 +333,7 @@ __global__ void __launch_bounds__(kThreads)
   // Then over the warps, through the ring's memory: red[warp][g] holds
   // acc[0 .. D), m, l.
   constexpr int kRed = kMaxD + 2;
+  static_assert(kWarps * GM * kRed * sizeof(float) <= kRingBytes, "red fits the ring");
   float* red = reinterpret_cast<float*>(ring);
   __syncthreads();  // every lane is past its last read of the ring
   if (grp == 0) {
@@ -388,11 +404,6 @@ __global__ void __launch_bounds__(kMaxD) decode_combine_kernel(const Params p) {
 template <typename T, int GM>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int kN = Chunk<T>::kN;
-  // Above 48 KB of dynamic shared memory a kernel must ask, once.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<T, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kRingBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   int lpr = 1;
   while (lpr * kN < p.D) lpr <<= 1;  // D <= 128 keeps lpr <= 32
   const int G = p.H / p.KV;
