@@ -43,8 +43,9 @@
 //      at the end of the block, into one float32 partial (acc, m, l) of
 //      [B, H, S, D + 2].
 //   5. A second small launch combines the S partials of each (b, h).
-// The group heads are a template (GM = 1, 2, 3, 4, 8), so G = 3 does three
-// heads' work. The wrapper allocates the scratch; the kernels allocate
+// The group heads are a template, GM = 1, 3, 4, 8 (the configs' G; G = 2
+// runs on GM = 4, G = 5 to 7 on GM = 8, a larger G on head groups of 8),
+// so G = 3 does three heads' work. The wrapper allocates the scratch; the kernels allocate
 // nothing.
 
 #include <cuda_bf16.h>
@@ -420,8 +421,8 @@ template <typename T>
 int dispatch(const Params& p, cudaStream_t stream) {
   switch (p.H / p.KV) {
     case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
     case 3: return launch<T, 3>(p, stream);
+    case 2:
     case 4: return launch<T, 4>(p, stream);
     default: return launch<T, 8>(p, stream);
   }
