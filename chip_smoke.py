@@ -10,15 +10,21 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 
   0. prints the card's name and power limit, the torch and CUDA versions,
      the build time, the registers, spills and shared memory of each bf16
-     flash instantiation, and the registers and spills of each decode one;
+     flash instantiation, and the registers and spills of each decode and
+     cpm one (a cpm spill fails the run);
   1. holds every kernel entry point against its plain PyTorch version on
      the card (tolerance 0: ``torch.equal``) at the offline main-path
      shape, the serving shape and ragged shapes, and times both with CUDA
-     events;
+     events (and the cpm kernels at the offline shape on the device alone,
+     in a CUDA graph); the fused stage-1 kernels (``fleet_lb``,
+     ``fleet_lb_masked``) take the stage-1 inputs of phase 2's fleet, and
+     one stage-1 launch as the engine makes it is split into its
+     host-to-device copy, launch-to-sync and copy back;
   2. solves the stress lane's 16-job production fleet offline with
      ``schedule_fleet`` at the engine defaults, with and without a
-     restricted topology, and checks fleet == solo, feasibility, and
-     card == CPU on a 4-instance subset;
+     restricted topology (wall, stage-1 and stage-2 ms a launch, peak
+     device memory), and checks fleet == solo, feasibility, and card ==
+     CPU on a 4-instance subset;
   3. serves the ``production_fleet`` golden stream (exact fingerprint),
      a 200-job production stream with the default fleet policy, and the
      same stream under ``topology="matching"``;
@@ -86,7 +92,8 @@ GOLDEN_FLEET_COUNTERS = dict(
 )
 
 # The port's own kernels (csrc/*.cu), reported by name in every profile.
-PORT_KERNELS = ("cpm_rows_kernel", "flash_fwd_", "decode_split_kernel",
+PORT_KERNELS = ("cpm_lanes_kernel", "cpm_fleet_kernel", "cpm_rows_kernel",
+                "cpm_fleet_rows_kernel", "flash_fwd_", "decode_split_kernel",
                 "decode_combine_kernel")
 
 SERVE_JOBS = 200
@@ -96,6 +103,8 @@ SOURCE = {
     "combined_lb": CSRC + "cpm.cu",
     "combined_lb_masked": CSRC + "cpm.cu",
     "critical_path": CSRC + "cpm.cu",
+    "fleet_lb": CSRC + "cpm.cu",
+    "fleet_lb_masked": CSRC + "cpm.cu",
     "flash_attention": CSRC + "flash_attention.cu",
     "decode_attention": CSRC + "decode_attention.cu",
 }
@@ -103,6 +112,9 @@ REPLACES = {
     "combined_lb": "src/repro/kernels/cpm.py:93",
     "combined_lb_masked": "src/repro/kernels/cpm.py:101",
     "critical_path": "src/repro/kernels/cpm.py:56",
+    # with the device program around it, src/repro/core/vectorized.py:455
+    "fleet_lb": "src/repro/kernels/cpm.py:93",
+    "fleet_lb_masked": "src/repro/kernels/cpm.py:101",
     "flash_attention": "src/repro/kernels/flash_attention.py:29",
     "decode_attention": "src/repro/kernels/decode_attention.py:27",
 }
@@ -226,22 +238,99 @@ def lb_inputs(np, torch, rng, B: int, n: int):
     )
 
 
-def bound(B: int, n: int, n_iters: int, kind: str) -> tuple[float, str]:
+def rounds_needed(torch, ref, w, n_iters: int, mask=None) -> int:
+    """Relaxation rounds these rows need, summed over the rows: a row's
+    rounds up to the first that changes no bit of its dist (that one
+    included, as it shows the fixed point), at most ``n_iters``. The
+    kernels stop a warp's rounds there; later rounds repeat it."""
+    w = w.float()
+    w = torch.where(torch.isfinite(w), w, torch.full_like(w, ref.NEG_INF))
+    if mask is not None:
+        w = w + mask
+    B = w.shape[0]
+    d = torch.zeros(w.shape[:2], dtype=torch.float32, device=w.device)
+    need = torch.full((B,), n_iters, dtype=torch.int64, device=w.device)
+    done = torch.zeros(B, dtype=torch.bool, device=w.device)
+    for k in range(n_iters):
+        nd = torch.maximum(d, (d[:, :, None] + w).amax(dim=1))
+        fixed = (nd.view(torch.int32) == d.view(torch.int32)).all(dim=1)
+        need = torch.where(fixed & ~done, torch.full_like(need, k + 1), need)
+        done |= fixed
+        d = nd
+    return int(need.sum())
+
+
+def bound(B: int, n: int, rounds: int, kind: str) -> tuple[float, str]:
     """Least ms the card could take: each input read once, each output
-    written once, over HBM rate; max/add operations over the f32 rate."""
+    written once, over HBM rate; max/add operations (``rounds``: the
+    relaxation rounds the rows need, summed) over the f32 rate."""
     tile = B * n * n * 4
     if kind == "critical_path":
         nbytes = tile + B * n * 4
-        ops = B * 2 * n_iters * n * n
+        ops = 2 * rounds * n * n
     else:
         nbytes = tile + B * n * 4 + B * 4 + B * 4
-        ops = B * (2 * n_iters * n * n + 2 * n + 1)
+        ops = 2 * rounds * n * n + B * (2 * n + 1)
         if kind == "combined_lb_masked":
             nbytes += tile
             ops += B * n * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fleet_bound(tensors, out_bytes: int, B: int, n: int, m: int, M: int,
+                rounds: int, masked: bool) -> tuple[float, str]:
+    """Least ms of one fused stage-1 launch: racks, instance ids and the
+    per-instance tables read once, lb written once; operations are the
+    float32 adds and maxes the bound needs: the relaxation rounds the rows
+    need and the epilogue as in :func:`bound`, the per-rack loads (one add
+    per task and rack, as the reference accumulates them), the work sum and
+    the two or three maxes and one division of the contention bound, and
+    under a topology one uplift add per edge cell, per edge and per forced
+    term."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + out_bytes
+    ops = 2 * rounds * n * n + B * (2 * n + 1 + n * M + m + 3)
+    if masked:
+        ops += B * 3 * m
+    return _larger(nbytes, ops, F32_OPS_PER_S)
+
+
+def stage1_inputs(np, torch, instances, rows: int, seed: int):
+    """The engine's stage-1 inputs for ``rows`` random candidates of each
+    instance (as ``_run_fleet.launch_stage1`` packs them: int32 racks and
+    instance ids on the host, padded tasks on rack 0) and the fleet's
+    tables on the card."""
+    from repro_torch.core.vectorized import _build_lb_arrays, _fleet_dims
+
+    dims = _fleet_dims(instances, use_wireless=True)
+    tables = _build_lb_arrays(instances, dims, torch.device("cuda"))
+    rng = np.random.default_rng(seed)
+    B = len(instances) * rows
+    rack = np.zeros((B, dims.n_pad), np.int32)
+    iid = np.zeros(B, np.int32)
+    for i, inst in enumerate(instances):
+        n = inst.job.n_tasks
+        rack[i * rows:(i + 1) * rows, :n] = rng.integers(0, inst.n_racks, (rows, n))
+        iid[i * rows:(i + 1) * rows] = i
+    return rack, iid, tables, dims
+
+
+def cpm_ptxas(log: str) -> list[dict]:
+    """Registers and spills of each function in cpm.cu's ``-Xptxas -v``
+    report (mangled names)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            cur = dict(function=line.split("Function properties for")[1].strip())
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append(cur)
+            cur = None
+    return out
 
 
 def profile_run(label: str, fn, wall_unprofiled: float) -> None:
@@ -710,6 +799,26 @@ def main() -> int:
         build.build_log(build.SOURCES["flash_attention"]), build.load("flash_attention")))
     emit("decode_ptxas", instantiations=decode_ptxas(
         build.build_log(build.SOURCES["decode_attention"])))
+    cpm_fns = cpm_ptxas(build.build_log(build.SOURCES["cpm"]))
+    emit("cpm_ptxas", functions=cpm_fns)
+    check(len(cpm_fns) > 0, "no ptxas report for cpm.cu")
+    for f in cpm_fns:
+        check(f.get("spill_store_bytes", 0) == 0 and f.get("spill_load_bytes", 0) == 0,
+              f"cpm.cu spills in {f['function']}")
+
+    # The offline fleet of phases 1 (stage-1 inputs) and 2.
+    evs = production_arrivals(0, rate=1 / 60, n_jobs=16, n_racks=8, n_wireless=2)
+    insts = [e.inst for e in evs]
+    topo_rng = np.random.default_rng(1)
+    topo_insts = [
+        dataclasses.replace(
+            inst,
+            topology=Topology(
+                reach=topo_rng.random((inst.n_racks, inst.n_wireless)) < 0.5
+            ),
+        )
+        for inst in insts
+    ]
 
     # -- 1. kernels against their plain versions ------------------------------
     rng = np.random.default_rng(0)
@@ -718,6 +827,8 @@ def main() -> int:
         ("serving", 8 * 512, 16, 9),
         ("ragged8", 257, 8, None),
         ("ragged12", 257, 12, None),
+        ("ragged17", 257, 17, None),
+        ("ragged32", 257, 32, None),
         ("ragged128", 257, 128, None),
     ]
     max_err = {k: 0.0 for k in cpm.launches}
@@ -747,13 +858,103 @@ def main() -> int:
             check(torch.equal(got, want), f"{name} != plain at {label} (err {err})")
             ms = cuda_ms(torch, kern)
             plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
-            b_ms, b_by = bound(B, n, it, name)
-            emit("kernel", name=name, shape=label, B=B, n=n, n_iters=it, ms=ms,
+            rounds = rounds_needed(torch, ref, w, it,
+                                   mask if name == "combined_lb_masked" else None)
+            b_ms, b_by = bound(B, n, rounds, name)
+            # The device time alone at the main-path shapes.
+            dev_ms = graph_ms(torch, kern) if label in ("offline", "serving") else None
+            emit("kernel", name=name, shape=label, B=B, n=n, n_iters=it,
+                 mean_rounds_needed=rounds / B, ms=ms, device_ms=dev_ms,
                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
             if label == "offline":
                 table[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by)
         del w, p, extra, mask
+    torch.cuda.empty_cache()
+
+    # The fused stage-1 kernels on phase 2's fleet: offline (16 jobs x 8192
+    # candidates) and serving (8 x 512) shapes, without and with a topology.
+    from repro_torch.core.vectorized import _rows_to_device
+
+    dev = torch.device("cuda")
+    for label, rows, n_inst in (("offline", 8192, 16), ("serving", 512, 8)):
+        for name, fleet_insts in (("fleet_lb", insts), ("fleet_lb_masked", topo_insts)):
+            rack, iid, tables, dims = stage1_inputs(np, torch, fleet_insts[:n_inst], rows, 2)
+            r32, i32 = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
+            B = rack.shape[0]
+            kw = dict(M_pad=dims.M_pad, n_iters=dims.n_iters, contention=True)
+            kern = lambda: cpm.fleet_combined_lb(r32, i32, *tables, **kw)  # noqa: E731
+            plain = lambda: ref.ref_fleet_lb(r32, i32, *tables, **kw)  # noqa: E731
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max().item())
+            max_err[name] = max(max_err[name], err)
+            check(torch.equal(got, want), f"{name} != plain at {label} (err {err})")
+            nc = dict(kw, contention=False)
+            check(torch.equal(cpm.fleet_combined_lb(r32, i32, *tables, **nc),
+                              ref.ref_fleet_lb(r32, i32, *tables, **nc)),
+                  f"{name} != plain without contention at {label}")
+            ms = cuda_ms(torch, kern)
+            dev_ms = graph_ms(torch, kern)
+            plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
+            w_, _, _, mask_ = ref.ref_fleet_operands(r32, i32, *tables, M_pad=dims.M_pad,
+                                                     contention=False)
+            rounds = rounds_needed(torch, ref, w_, dims.n_iters, mask_)
+            del w_, mask_
+            b_ms, b_by = fleet_bound((r32, i32, *tables), 4 * B, B, dims.n_pad,
+                                     dims.m_pad, dims.M_pad, rounds,
+                                     name == "fleet_lb_masked")
+            emit("kernel", name=name, shape=label, B=B, n=dims.n_pad, m=dims.m_pad,
+                 M=dims.M_pad, n_iters=dims.n_iters, mean_rounds_needed=rounds / B,
+                 ms=ms, device_ms=dev_ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                 host_us_per_call=host_us(torch, kern))
+            if label == "offline":
+                table[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+                # Where the kernel's time goes: device ms without the
+                # contention terms, without rounds, and with neither (the
+                # rows' build: racks, tile, edges, epilogue).
+                def part(contention, n_iters):
+                    return graph_ms(torch, lambda: cpm.fleet_combined_lb(
+                        r32, i32, *tables, M_pad=dims.M_pad, n_iters=n_iters,
+                        contention=contention))
+
+                emit("fleet_lb_parts", kernel=name, device_ms=dev_ms,
+                     no_contention_ms=part(False, dims.n_iters),
+                     no_rounds_ms=part(True, 0), build_only_ms=part(False, 0))
+                # One stage-1 launch as _run_fleet makes it: copy the rows
+                # in, launch and sync, copy the bounds back.
+                split = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rd, idd = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    lb = cpm.fleet_combined_lb(rd, idd, *tables, **kw)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    lb.cpu().numpy()
+                    t3 = time.perf_counter()
+                    split.append((t1 - t0, t2 - t1, t3 - t2))
+                h2d, run, d2h = (1e3 * float(np.median(c)) for c in zip(*split))
+                # Device memory one launch adds over what is allocated: the
+                # kernel's output, against the plain version's [B, n, n]
+                # adjacency (and mask), as the PyTorch glue formed them.
+                peak = {}
+                for which, fn in (("kernel", kern), ("plain", plain)):
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    fn()
+                    torch.cuda.synchronize()
+                    peak[which] = (torch.cuda.max_memory_allocated() - base) / 2**20
+                emit("stage1_host_split", kernel=name, B=B, h2d_ms=h2d,
+                     launch_to_sync_ms=run, d2h_ms=d2h, total_ms=h2d + run + d2h,
+                     h2d_bytes=rack.nbytes + iid.nbytes,
+                     launch_peak_mib=peak["kernel"], plain_launch_peak_mib=peak["plain"])
+            del r32, i32, tables, got, want
     torch.cuda.empty_cache()
 
     # -- main path: every count to 0 just before, read just after -------------
@@ -762,17 +963,16 @@ def main() -> int:
     t_main = time.perf_counter()
 
     # -- 2. offline fleet -------------------------------------------------------
-    evs = production_arrivals(0, rate=1 / 60, n_jobs=16, n_racks=8, n_wireless=2)
-    insts = [e.inst for e in evs]
-
     def fleet_run(instances, label):
         before = dict(cpm.launches)
         tr = Tracer()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         fleet = schedule_fleet(instances, tracer=tr)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
         s1 = [s.duration for s in tr.spans_named("stage1_launch")]
         s2 = [s.duration for s in tr.spans_named("stage2_launch")]
         emit("offline_fleet", arm=label, n_instances=len(instances),
@@ -782,6 +982,8 @@ def main() -> int:
              stage1_launches=fleet.n_stage1_launches,
              stage2_launches=fleet.n_stage2_launches,
              stage1_ms_per_launch=1e3 * float(np.mean(s1)) if s1 else None,
+             stage1_ms_min_max=[1e3 * min(s1), 1e3 * max(s1)] if s1 else None,
+             peak_device_mib=peak / 2**20,
              stage2_ms_per_launch=1e3 * float(np.mean(s2)) if s2 else None,
              stage2_rows=8192 * len(instances),
              stage2_bound_ms=stage2_bound_ms(torch, instances, 8192),
@@ -799,23 +1001,13 @@ def main() -> int:
                 and a.refine_rounds == b.refine_rounds)
 
     fleet, d, fleet_wall = fleet_run(insts, "plain")
-    check(d["combined_lb"] > 0, "offline fleet launched no combined_lb")
+    check(d["fleet_lb"] > 0, "offline fleet launched no fleet_lb")
     for i, inst in enumerate(insts):
         check(same(vectorized_search(inst), fleet.results[i]),
               f"offline fleet != solo for instance {i}")
 
-    topo_rng = np.random.default_rng(1)
-    topo_insts = [
-        dataclasses.replace(
-            inst,
-            topology=Topology(
-                reach=topo_rng.random((inst.n_racks, inst.n_wireless)) < 0.5
-            ),
-        )
-        for inst in insts
-    ]
     tfleet, d, _ = fleet_run(topo_insts, "topology")
-    check(d["combined_lb_masked"] > 0, "topology fleet launched no masked kernel")
+    check(d["fleet_lb_masked"] > 0, "topology fleet launched no masked kernel")
     for i in range(4):
         check(same(vectorized_search(topo_insts[i]), tfleet.results[i]),
               f"topology fleet != solo for instance {i}")
@@ -867,16 +1059,16 @@ def main() -> int:
         return launched
 
     d = serve("fleet")
-    check(d["combined_lb"] > 0, "fleet serve launched no combined_lb")
+    check(d["fleet_lb"] > 0, "fleet serve launched no fleet_lb")
     d = serve("matching", topology="matching",
               cluster_topology=Topology(reach=np.ones((8, 2), bool), degree=1,
                                         delta=0.5))
-    check(d["combined_lb_masked"] > 0, "matching serve launched no masked kernel")
+    check(d["fleet_lb_masked"] > 0, "matching serve launched no masked kernel")
 
     main_launches = dict(cpm.launches)
     emit("main_path", seconds=time.perf_counter() - t_main,
          launches=main_launches)
-    for name in ("combined_lb", "combined_lb_masked"):
+    for name in ("fleet_lb", "fleet_lb_masked"):
         check(main_launches[name] > 0, f"main path never launched {name}")
 
     # -- 4. where the device time goes (after the main-path counts) ----------

@@ -11,9 +11,10 @@ mega-batch (shared size bucket, per-row instance ids, per-instance channel
 masks) and solved by one pair of device programs per size bucket.
 
   Stage 1 (bound): every candidate passes through the paper's combined
-  §IV-A lower bound, computed batched on the device: the max-plus adjacency
-  and contention terms are built in PyTorch and handed to the hand-written
-  CUDA kernel :func:`repro_torch.kernels.ops.batched_combined_lb` — the
+  §IV-A lower bound, computed batched on the device in one launch of the
+  hand-written CUDA kernel :func:`repro_torch.kernels.cpm.fleet_combined_lb`,
+  which builds each candidate's max-plus adjacency and contention terms on
+  chip from its racks and its instance's edge tables — the
   critical-path bound (iterated max-plus relaxation on dense adjacency
   blocks) maxed with the contention terms (per-rack work, aggregate
   wired+wireless channel work; see :mod:`repro_torch.core.bounds` for the
@@ -75,7 +76,7 @@ from repro_torch.core.instance import ProblemInstance
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.simulator import OP_EDGE, OP_TASK, build_op_tables, pad_op_tables, simulate
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import cpm as kcpm
 from repro_torch.obs.trace import as_tracer
 
 __all__ = [
@@ -343,6 +344,15 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(a).to(device=device, dtype=dtype)
 
 
+def _rows_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """Stage-1 racks / instance ids -> device: int32 as they are on a CUDA
+    device (the fused kernel reads them so, half the copy's bytes), int64
+    indices on the CPU (the plain version gathers with them)."""
+    if torch.device(device).type == "cuda":
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+    return _to_device(a, device)
+
+
 def make_batched_evaluator(inst: ProblemInstance, use_wireless: bool = True, device=None):
     """Build a fn: rack[B, n] int -> makespan[B] float32 (greedy non-delay).
 
@@ -430,8 +440,8 @@ def _build_lb_arrays(instances, dims: _FleetDims, device):
 
 
 def _fleet_lb_device(
-    racks,      # int64[B, n_pad]
-    inst_id,    # int64[B]
+    racks,      # int64[B, n_pad] (int32 on a CUDA device: _rows_to_device)
+    inst_id,    # int64[B] (racks' dtype)
     src,        # int64[I, m_pad]
     dst,        # int64[I, m_pad]
     p_src,      # f32[I, m_pad]  source-task duration per edge (0 on padding)
@@ -453,8 +463,10 @@ def _fleet_lb_device(
 
     Builds the per-candidate max-plus adjacency (edge cost = p_u + r or
     p_u + min(q, q̌) depending on co-location), accumulates the contention
-    terms, and hands both to the CUDA kernel
-    :func:`repro_torch.kernels.ops.batched_combined_lb`.
+    terms and relaxes, all in one launch of the CUDA kernel
+    :func:`repro_torch.kernels.cpm.fleet_combined_lb`; on the CPU its plain
+    version :func:`repro_torch.kernels.ref.ref_fleet_lb` does the same in
+    PyTorch and hands the adjacency to ``ref_combined_lb``.
 
     With ``pair_ok``/``uplift`` present, cross edges whose rack pair shares
     no reachable subchannel are charged the wired uplift through the
@@ -470,77 +482,10 @@ def _fleet_lb_device(
     if key not in _seen_stage1:
         _seen_stage1.add(key)
         LB_TRACE_COUNT += 1
-    B, n_pad = racks.shape
-    m_pad = src.shape[1]
-    dev = racks.device
-    f32 = torch.float32
-
-    def take(t):
-        return t.index_select(0, inst_id)
-
-    src_b, dst_b = take(src), take(dst)
-    ru = racks.gather(1, src_b)
-    rv = racks.gather(1, dst_b)
-    same = ru == rv
-    cost = torch.where(same, take(c_local), take(c_net)) + take(p_src)
-    # Batched static-index scatter: padded edges all write -inf at (0, 0),
-    # which no real edge can occupy (self-loops are rejected by DagJob), so
-    # their duplicate indices are harmless.
-    rows = torch.arange(B, device=dev)[:, None]
-    w = torch.full((B, n_pad, n_pad), float("-inf"), dtype=f32, device=dev)
-    w[rows, src_b, dst_b] = cost
-    p_b = take(p_task)
-
-    if pair_ok is not None:
-        # Per-edge pair connectivity under each candidate's rack choice.
-        ok = pair_ok[inst_id[:, None], ru, rv] > 0.5
-        # Additive matching-feasibility mask for the kernel: 0 on feasible
-        # edges, the wired uplift on forced ones (same scatter as ``w``).
-        up = torch.where(same | ok, torch.zeros((), dtype=f32, device=dev), take(uplift))
-        mask = torch.zeros((B, n_pad, n_pad), dtype=f32, device=dev)
-        mask[rows, src_b, dst_b] = up
-    else:
-        ok = None
-        mask = None
-
-    if contention:
-        # §IV-A contention terms, accumulated one task / edge at a time in
-        # the reference's order (never a reduction, which would reorder the
-        # float32 adds), so an instance's bounds are bit-identical under any
-        # fleet padding (padded tasks/edges contribute exact zeros).
-        zero = torch.zeros((), dtype=f32, device=dev)
-        rack_ids = torch.arange(M_pad, device=dev)
-        load = torch.zeros((B, M_pad), dtype=f32, device=dev)
-        for v in range(n_pad):
-            hit = racks[:, v, None] == rack_ids
-            load = load + torch.where(hit, p_b[:, v, None], zero)
-        lb_load = load.amax(dim=1)
-
-        nw = take(net_work)
-        if ok is None:
-            work = torch.zeros((B,), dtype=f32, device=dev)
-            for e in range(m_pad):
-                work = work + torch.where(same[:, e], zero, nw[:, e])
-            extra = torch.maximum(lb_load, work / take(chan_div))
-        else:
-            # Forced cross edges pay the full wired duration in the
-            # aggregate-work term and, being confined to the single wired
-            # channel, also a serial forced-wired load bound.
-            nw_eff = nw + torch.where(ok, zero, take(uplift))
-            work = torch.zeros((B,), dtype=f32, device=dev)
-            forced = torch.zeros((B,), dtype=f32, device=dev)
-            for e in range(m_pad):
-                se, ne = same[:, e], nw_eff[:, e]
-                work = work + torch.where(se, zero, ne)
-                forced = forced + torch.where(se | ok[:, e], zero, ne)
-            extra = torch.maximum(
-                torch.maximum(lb_load, work / take(chan_div)), forced
-            )
-    else:
-        extra = torch.full((B,), float("-inf"), dtype=f32, device=dev)
-
-    return kops.batched_combined_lb(
-        w, p_b, extra, mask=mask, block_b=min(block_b, B), n_iters=n_iters
+    return kcpm.fleet_combined_lb(
+        racks, inst_id, src, dst, p_src, c_local, c_net, net_work, p_task,
+        chan_div, pair_ok, uplift, M_pad=M_pad, n_iters=n_iters,
+        contention=contention,
     )
 
 
@@ -562,7 +507,7 @@ def batched_lower_bound(
     instances prunable at all.
 
     With ``use_kernel=True`` the whole bound runs through the CUDA kernel
-    path (`_fleet_lb_device` -> `repro_torch.kernels.ops.batched_combined_lb`)
+    path (`_fleet_lb_device` -> `repro_torch.kernels.cpm.fleet_combined_lb`)
     on dense size-bucketed adjacency blocks — the production stage-1 path
     of `vectorized_search` / `schedule_fleet`. The edge-list path is the
     portable reference oracle. Both run on ``device``.
@@ -582,8 +527,8 @@ def batched_lower_bound(
         racks_pad = np.zeros((B_pad, dims.n_pad), dtype=np.int32)
         racks_pad[:B, :n] = racks
         out = _fleet_lb_device(
-            _to_device(racks_pad, dev),
-            torch.zeros(B_pad, dtype=torch.int64, device=dev),
+            _rows_to_device(racks_pad, dev),
+            _rows_to_device(np.zeros(B_pad, np.int32), dev),
             *lb_args,
             M_pad=dims.M_pad,
             n_iters=dims.n_iters,
@@ -989,8 +934,8 @@ def _run_fleet(
                 iid[lo : lo + batch_size] = st.idx
             with tr.span("stage1_launch", rows=B1, kernel=True):
                 lbs = _fleet_lb_device(
-                    _to_device(rack, dev),
-                    _to_device(iid, dev),
+                    _rows_to_device(rack, dev),
+                    _rows_to_device(iid, dev),
                     *lb_args,
                     M_pad=dims.M_pad,
                     n_iters=dims.n_iters,

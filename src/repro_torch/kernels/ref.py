@@ -3,7 +3,12 @@
 ``ref_critical_path`` / ``ref_combined_lb`` are twins of the JAX
 package's oracles, written in float32 with the kernel's own round loop,
 non-finite mapping and association, so that they equal the CUDA kernel
-(and the Pallas kernel) bit for bit.
+(and the Pallas kernel) bit for bit. ``ref_fleet_lb`` is the twin of the
+JAX package's stage-1 device program
+(``src/repro/core/vectorized.py:_fleet_lb_device``): the adjacency and
+mask scatter and the contention terms in PyTorch, then
+``ref_combined_lb``; the fused kernel ``cpm_fleet_lb`` equals it bit for
+bit.
 
 ``ref_flash_attention`` / ``ref_decode_attention`` are twins of the JAX
 package's attention oracles (``src/repro/kernels/ref.py``): float32
@@ -30,6 +35,8 @@ __all__ = [
     "clamp_iters",
     "ref_critical_path",
     "ref_combined_lb",
+    "ref_fleet_lb",
+    "ref_fleet_operands",
     "ref_flash_attention",
     "ref_decode_attention",
     "ref_decode_attention_split",
@@ -81,6 +88,111 @@ def ref_combined_lb(
     lb = (dist + p.to(torch.float32)).amax(dim=1)
     extra = _finite(extra.to(torch.float32).reshape(-1))
     return torch.maximum(lb, extra)
+
+
+def ref_fleet_operands(
+    racks,      # int[B, n_pad] candidate rack per task (int32 or int64)
+    inst_id,    # int[B] fleet instance of each row
+    src,        # int64[I, m_pad] edge source task (0 on padding)
+    dst,        # int64[I, m_pad] edge destination task (0 on padding)
+    p_src,      # f32[I, m_pad] source-task duration per edge (0 on padding)
+    c_local,    # f32[I, m_pad] local delay per edge (-inf on padding)
+    c_net,      # f32[I, m_pad] optimistic network duration (-inf on padding)
+    net_work,   # f32[I, m_pad] min network duration (0 on padding)
+    p_task,     # f32[I, n_pad] task durations (0 on padding)
+    chan_div,   # f32[I] 1 + |K| network channels
+    pair_ok=None,  # f32[I, M_pad, M_pad] 1 = rack pair shares a reachable subchannel
+    uplift=None,   # f32[I, m_pad] forced-wired uplift q - min(q, q̌)
+    *,
+    M_pad: int,
+    contention: bool,
+) -> tuple:
+    """The operands ``(w, p, extra, mask)`` of ``ref_combined_lb`` for every
+    candidate row, built from its racks and its instance's edge tables (see
+    ``repro_torch.core.vectorized._build_lb_arrays``); ``mask`` is None
+    unless ``pair_ok`` / ``uplift`` are given."""
+    racks, inst_id = racks.long(), inst_id.long()
+    B, n_pad = racks.shape
+    m_pad = src.shape[1]
+    dev = racks.device
+    f32 = torch.float32
+
+    def take(t):
+        return t.index_select(0, inst_id)
+
+    src_b, dst_b = take(src), take(dst)
+    ru = racks.gather(1, src_b)
+    rv = racks.gather(1, dst_b)
+    same = ru == rv
+    cost = torch.where(same, take(c_local), take(c_net)) + take(p_src)
+    # Batched static-index scatter: padded edges all write -inf at (0, 0),
+    # which no real edge can occupy (self-loops are rejected by DagJob), so
+    # their duplicate indices are harmless.
+    rows = torch.arange(B, device=dev)[:, None]
+    w = torch.full((B, n_pad, n_pad), float("-inf"), dtype=f32, device=dev)
+    w[rows, src_b, dst_b] = cost
+    p_b = take(p_task)
+
+    if pair_ok is not None:
+        # Per-edge pair connectivity under each candidate's rack choice.
+        ok = pair_ok[inst_id[:, None], ru, rv] > 0.5
+        # Additive matching-feasibility mask: 0 on feasible edges, the wired
+        # uplift on forced ones (same scatter as ``w``).
+        up = torch.where(same | ok, torch.zeros((), dtype=f32, device=dev), take(uplift))
+        mask = torch.zeros((B, n_pad, n_pad), dtype=f32, device=dev)
+        mask[rows, src_b, dst_b] = up
+    else:
+        ok = None
+        mask = None
+
+    if contention:
+        # §IV-A contention terms, accumulated one task / edge at a time in
+        # the reference's order (never a reduction, which would reorder the
+        # float32 adds), so an instance's bounds are bit-identical under any
+        # fleet padding (padded tasks/edges contribute exact zeros).
+        zero = torch.zeros((), dtype=f32, device=dev)
+        rack_ids = torch.arange(M_pad, device=dev)
+        load = torch.zeros((B, M_pad), dtype=f32, device=dev)
+        for v in range(n_pad):
+            hit = racks[:, v, None] == rack_ids
+            load = load + torch.where(hit, p_b[:, v, None], zero)
+        lb_load = load.amax(dim=1)
+
+        nw = take(net_work)
+        if ok is None:
+            work = torch.zeros((B,), dtype=f32, device=dev)
+            for e in range(m_pad):
+                work = work + torch.where(same[:, e], zero, nw[:, e])
+            extra = torch.maximum(lb_load, work / take(chan_div))
+        else:
+            # Forced cross edges pay the full wired duration in the
+            # aggregate-work term and, being confined to the single wired
+            # channel, also a serial forced-wired load bound.
+            nw_eff = nw + torch.where(ok, zero, take(uplift))
+            work = torch.zeros((B,), dtype=f32, device=dev)
+            forced = torch.zeros((B,), dtype=f32, device=dev)
+            for e in range(m_pad):
+                se, ne = same[:, e], nw_eff[:, e]
+                work = work + torch.where(se, zero, ne)
+                forced = forced + torch.where(se | ok[:, e], zero, ne)
+            extra = torch.maximum(
+                torch.maximum(lb_load, work / take(chan_div)), forced
+            )
+    else:
+        extra = torch.full((B,), float("-inf"), dtype=f32, device=dev)
+    return w, p_b, extra, mask
+
+
+def ref_fleet_lb(
+    racks, inst_id, *tables, M_pad: int, n_iters: int, contention: bool
+) -> torch.Tensor:
+    """lb[B]: the combined §IV-A bound of every candidate row (``tables`` as
+    in :func:`ref_fleet_operands`), relaxed over the feasibility mask when
+    ``pair_ok`` / ``uplift`` are given."""
+    w, p, extra, mask = ref_fleet_operands(
+        racks, inst_id, *tables, M_pad=M_pad, contention=contention
+    )
+    return ref_combined_lb(w, p, extra, mask=mask, n_iters=n_iters)
 
 
 def ref_flash_attention(

@@ -219,4 +219,39 @@ def test_cuda_kernels_equal_plain_versions_on_card():
             tref.ref_combined_lb(tw, tp, te, mask=tm),
         )
         assert torch.equal(cpm.batched_critical_path(tw), tref.ref_critical_path(tw))
-        assert all(cpm.launches[k] == before[k] + 1 for k in before)
+        dense = ("combined_lb", "combined_lb_masked", "critical_path")
+        assert all(cpm.launches[k] == before[k] + (k in dense) for k in before)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_kernels_sweep_on_card():
+    """On a card: the [B, n, n] kernels equal their plain versions over n
+    (lane groups of 2, 4 and 16 lanes with vector and scalar loads, the
+    shared-tile body above 32), rounds 0, 1 and the depth, and ``extra`` at
+    -inf, dominated and dominating; B = 257 is no multiple of any block's
+    rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CPU route is covered above)")
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    B = 257
+    for n in (1, 5, 8, 16, 17, 32, 33, 64, 128):
+        w, p, _ = _ragged_lb_megabatch(rng, B, n)
+        kind = rng.integers(0, 3, size=B)
+        extra = np.where(kind == 0, -np.inf, np.where(kind == 1, 0.5, 1e4))
+        mask = _mask(rng, w)
+        tw, tp, te, tm = (_t(a).to(dev) for a in (w, p, extra, mask))
+        for it in sorted({0, 1, n - 1}):
+            assert torch.equal(
+                cpm.batched_combined_lb(tw, tp, te, n_iters=it),
+                tref.ref_combined_lb(tw, tp, te, n_iters=it),
+            ), (n, it)
+            assert torch.equal(
+                cpm.batched_combined_lb(tw, tp, te, mask=tm, n_iters=it),
+                tref.ref_combined_lb(tw, tp, te, mask=tm, n_iters=it),
+            ), (n, it)
+            assert torch.equal(
+                cpm.batched_critical_path(tw, n_iters=it),
+                tref.ref_critical_path(tw, n_iters=it),
+            ), (n, it)
+    torch.cuda.synchronize()
