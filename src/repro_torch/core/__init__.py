@@ -1,12 +1,16 @@
-# Ported from src/repro/core/__init__.py: exports only what is ported so far.
+# Ported from src/repro/core/__init__.py; imports retargeted to repro_torch.
 """The paper's primary contribution: optimal joint job scheduling and
 bandwidth augmentation for hybrid data-center networks (Guo et al., 2022),
 ported to PyTorch.
 
-Layers ported so far:
+Layers:
   dag / instance / schedule   — problem model and OP-semantics checker
   bounds                      — §IV-A heuristic bounds (Algorithm 1)
   simulator                   — discrete-event schedule executor
+  milp / solver_milp          — §IV-B/C generalized transfer model + RP
+                                 linearization, solved by B&B (HiGHS)
+  bisection                   — §IV-D feasibility-subproblem decomposition
+  bnb                         — combinatorial exact B&B
   vectorized                  — batched assignment search on the device
                                 (stage-1 bound in a CUDA kernel, stage 2
                                 in PyTorch)
@@ -15,9 +19,6 @@ Layers ported so far:
   coflow                      — coflow view of an admission epoch +
                                 commit-order search
   baselines                   — §V comparison schedulers
-
-The exact solvers (milp / solver_milp / bisection / bnb) are not ported
-yet.
 """
 
 from repro_torch.core.dag import (
@@ -39,6 +40,10 @@ from repro_torch.core.bounds import (
     upper_bound,
 )
 from repro_torch.core.simulator import simulate
+from repro_torch.core.milp import build_rp, extract_schedule
+from repro_torch.core.solver_milp import MilpResult, solve_optimal, solve_rp
+from repro_torch.core.bisection import BisectionResult, solve_bisection
+from repro_torch.core.bnb import BnbResult, solve_bnb
 from repro_torch.core.vectorized import (
     FleetResult,
     VectorizedResult,
@@ -88,6 +93,10 @@ __all__ = [
     "lower_bound", "longest_branch", "upper_bound",
     "contention_lower_bounds", "network_work_bounds", "rack_load_bounds",
     "simulate",
+    "build_rp", "extract_schedule",
+    "MilpResult", "solve_optimal", "solve_rp",
+    "BisectionResult", "solve_bisection",
+    "BnbResult", "solve_bnb",
     "VectorizedResult", "vectorized_search",
     "FleetResult", "schedule_fleet",
     "DEFAULT_PORTFOLIO", "AnnealingStrategy", "CrossoverStrategy",

@@ -24,6 +24,8 @@ def test_import_loads_neither_jax_nor_reference_package():
         import repro_torch.models, repro_torch.models.lm, repro_torch.configs
         import repro_torch.runtime.steps, repro_torch.launch.serve
         import repro_torch.kernels.attention
+        import repro_torch.distribution.plan
+        import repro_torch.obs.export, repro_torch.obs.report
         repro_torch.configs.get_config("llama3.2-3b")
         bad = sorted(
             m for m in sys.modules
