@@ -34,7 +34,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      versions (2e-5 in float32, 4e-2 in bfloat16 elementwise, and each
      output row within 2e-5 / 1e-2 of its own norm) at llama3.2-3b's heads,
      phi3-mini's (D 96) and seamless-m4t-medium's (D 64), ragged lengths,
-     the reference tests' shapes and long caches, and times kernel, plain
+     the reference tests' shapes and long caches, phase 7's shapes (jamba's
+     attention, seamless's encoder, self and one-token cross steps, the
+     vision model's self and cross layers over 1,600 patches), and times
+     kernel, plain
      version and PyTorch's ``scaled_dot_product_attention`` (the
      yardstick; the port never calls it); each row also gives its share
      of its bound and the host time of one wrapper call, a flash row its
@@ -49,7 +52,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
   5c. decodes a few steps of B = 8 over a 32,768-token cache filled from
      the seed, beside the step's byte bound;
   5d. holds the port on the card (kernels) against the port on the CPU
-     (plain versions) on the smoke configs: prefill and 8 decode steps;
+     (plain versions) on the smoke configs of every family: prefill and 8
+     decode steps (KL per row for the MoE configs, allclose for the rest);
   6. runs the paper's production scenario (examples/schedule_cluster.py)
      with the exact optimum as the oracle: 8 periodic jobs on 8 racks and
      2 wireless subchannels through ``schedule_fleet`` on the card, each
@@ -70,13 +74,30 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      ``load_trace``: one breakdown row per epoch and a finite, positive
      commit latency. The phase's cpm launches are counted from 0 and
      ``fleet_lb`` must have run;
+  7. serves the expert, recurrent and cross-attention families at their
+     published widths through ``serve_model`` (seed-0 bf16 weights, 4
+     requests each, one model on the card at a time): jamba-v0.1-52b cut
+     to one period of 8 layers (4 x 512 tokens, 16 generated; timed at
+     its capacity factor with KL(prefill || decode) reported, then again
+     without drops and gated at tests/test_models.py:103-111's KL bars),
+     with the time of each layer kind and a profile of a prefill and 4
+     decode steps; xlstm-350m (4 x 256, 16 generated) with its layer
+     times, gated on the KL bars in bf16 (the reference's own bf16 gap
+     exceeds the tolerance at these widths) and at max(0.05, 0.02 *
+     n_layers) with the same weights in float32 compute;
+     seamless-m4t-medium over 256 frames (4 x 256, 16 generated);
+     llama-3.2-vision-11b over 1,600 patches (4 x 128, 8 generated). The
+     last two are gated at prefill == decode within max(0.05, 0.02 *
+     n_layers); every serve checks finite logits and the exact flash and
+     decode launch counts of its layer kinds, and reports its bounds;
 
 and prints the kernel table and, as its last line,
 ``{"ok": true, "device": {...}}``. Every check raises on failure. It
 exits non-zero, printing no result, when no card is available or when
 ``src/repro_torch`` is missing. Each main path reads its own launch
-counts: the scheduler's (phases 2 and 3) and the serving path's (phase
-5b), every count set to 0 just before and read just after.
+counts: the scheduler's (phases 2 and 3), the serving path's (phase 5b)
+and each family's serve (phase 7), every count set to 0 just before and
+read just after.
 """
 
 from __future__ import annotations
@@ -146,6 +167,15 @@ REPLACES = {
 SERVE_ARCH = "llama3.2-3b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
 LONG_BATCH, LONG_CACHE, LONG_STEPS = 8, 32768, 4
+# Phase 7: the expert, recurrent and cross-attention families at their
+# published widths, 4 requests each. jamba-v0.1-52b is cut to one period
+# of its layer pattern (8 of 32 layers: attention on layer 3, MoE on the
+# odd layers); the others run whole.
+J_ARCH, J_LAYERS, J_PROMPT, J_GEN = "jamba-v0.1-52b", 8, 512, 16
+X_ARCH, X_PROMPT, X_GEN = "xlstm-350m", 256, 16
+F_ARCH, F_PROMPT, F_GEN = "seamless-m4t-medium", 256, 16  # frames = prompt
+V_ARCH, V_PROMPT, V_GEN, V_PATCHES = "llama-3.2-vision-11b", 128, 8, 1600
+FAMILY_BATCH = 4
 ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 4e-2}
 # With randn inputs the softmax averages many V rows, so a typical output
 # value is 0.01-0.05 and 4e-2 alone would pass a wrong rescale. Each
@@ -567,12 +597,21 @@ def attention_kernels(np, torch) -> dict:
             (1, 256, 4, 4, 128, True), (2, 128, 8, 2, 64, True),
             (1, 512, 8, 8, 128, False), (1, 128, 4, 1, 128, True),
             (2, 256, 16, 4, 64, True))]
-    for label, B, S, H, KV, D, causal, dt in flash:
-        q, k, v = rn((B, S, H, D), dt), rn((B, S, KV, D), dt), rn((B, S, KV, D), dt)
+    # Phase 7's shapes: jamba's attention layer, seamless's encoder (and its
+    # cross-attention, the same shape), llama-3.2-vision's self and cross
+    # layers (T = its 1,600 patches), all bf16 at B = 4.
+    flash = [(label, 4, S, H, KV, D, causal, bf16, T) for label, S, H, KV, D, causal, T in (
+        ("jamba_prefill", J_PROMPT, 32, 8, 128, True, J_PROMPT),
+        ("seamless_encoder_and_cross", F_PROMPT, 16, 16, 64, False, F_PROMPT),
+        ("vision_self", V_PROMPT, 32, 8, 128, True, V_PROMPT),
+        ("vision_cross", V_PROMPT, 32, 8, 128, False, V_PATCHES))] + [
+        row + (row[2],) for row in flash]
+    for label, B, S, H, KV, D, causal, dt, T in flash:
+        q, k, v = rn((B, S, H, D), dt), rn((B, T, KV, D), dt), rn((B, T, KV, D), dt)
         got = attention.flash_attention(q, k, v, causal)
         want = ref.ref_flash_attention(q, k, v, causal)
         errs = check_attention(torch, "flash_attention", got, want, dt,
-                               f"{label} {(B, S, H, KV, D, causal, dt)}")
+                               f"{label} {(B, S, T, H, KV, D, causal, dt)}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         record("flash_attention", label, errs,
                lambda: attention.flash_attention(q, k, v, causal),
@@ -580,12 +619,22 @@ def attention_kernels(np, torch) -> dict:
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=True),
                flash_bound(torch, q, k, causal), flash_flops(q, k, causal),
-               B=B, S=S, H=H, KV=KV, D=D, causal=causal, dtype=str(dt))
+               B=B, S=S, T=T, H=H, KV=KV, D=D, causal=causal, dtype=str(dt))
         del q, k, v, qt, kt, vt, got, want
     torch.cuda.empty_cache()
 
     serve_len = SERVE_PROMPT + SERVE_GEN
     decode = [("serve_decode", 4, 24, 8, 128, serve_len + 1, [serve_len] * 4, bf16)]
+    # Phase 7's shapes: the self-attention caches of jamba (G = 4) and
+    # seamless (G = 1) halfway through generation, and the one-token
+    # cross-attention steps over seamless's frames and vision's patches.
+    decode += [
+        ("jamba_decode", 4, 32, 8, 128, J_PROMPT + J_GEN + 1, [J_PROMPT + J_GEN // 2] * 4, bf16),
+        ("seamless_decode", 4, 16, 16, 64, F_PROMPT + F_GEN + 1,
+         [F_PROMPT + F_GEN // 2] * 4, bf16),
+        ("seamless_cross_step", 4, 16, 16, 64, F_PROMPT, [F_PROMPT] * 4, bf16),
+        ("vision_cross_step", 4, 32, 8, 128, V_PATCHES, [V_PATCHES] * 4, bf16),
+    ]
     for dt in (bf16, f32):
         decode += [
             ("B8_T4096", 8, 24, 8, 128, 4096, [1, 4096, 2048, 100, 4095, 3000, 17, 1234], dt),
@@ -747,39 +796,353 @@ def serving_phases(np, torch) -> dict:
     return launches
 
 
+def kl_rows(torch, p_logits, q_logits):
+    """KL(p || q) over the vocabulary, one value a row, in float32."""
+    p = torch.log_softmax(p_logits.float(), dim=-1)
+    q = torch.log_softmax(q_logits.float(), dim=-1)
+    return (p.exp() * (p - q)).sum(dim=-1)
+
+
+def agree(torch, got, want, tol, what) -> dict:
+    """The reference tests' bars between two logits tensors: allclose at
+    ``tol``, or with ``tol=None`` KL(want || got) per row, max < 0.1 and
+    mean < 0.02 (tests/test_models.py:103-111, for MoE configs: top-k
+    routing is discontinuous, so a near-tie may route differently after a
+    rounding). Returns the measured values."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    if tol is None:
+        kl = kl_rows(torch, want, got)
+        kmax, kmean = float(kl.max()), float(kl.mean())
+        check(kmax < 0.1 and kmean < 0.02,
+              f"{what}: KL max {kmax} (limit 0.1), mean {kmean} (limit 0.02)")
+        return dict(max_abs_err=err, kl_max=kmax, kl_mean=kmean, kl_limits=[0.1, 0.02])
+    check(torch.allclose(got, want, atol=tol, rtol=tol), f"{what}: max abs err {err}, tol {tol}")
+    return dict(max_abs_err=err, tol=tol)
+
+
+def smoke_memory(np, torch, cfg, rng, B: int, S: int):
+    """Raw frames [B, S, d] of an encoder-decoder config or patches
+    [B, 16, d] of a cross-attention one (tests/test_models.py:26-31);
+    None for the others."""
+    if not (cfg.n_enc_layers or cfg.cross_attn_every):
+        return None
+    T = S if cfg.n_enc_layers else 16
+    return torch.from_numpy(rng.standard_normal((B, T, cfg.d_model)).astype(np.float32))
+
+
+def attention_calls(cfg) -> tuple[int, int, int]:
+    """Attention kernel calls of one prefill (flash: the encoder's layers,
+    one per self or cross attention, two per attn_cross layer), of one
+    decode step (decode: the same layers of the decoder) and of one
+    encode (flash)."""
+    from repro_torch.models.config import layer_kinds
+
+    per = {"attn": 1, "cross": 1, "attn_cross": 2}
+    n = sum(per.get(mixer, 0) for mixer, _ in layer_kinds(cfg))
+    return n + cfg.n_enc_layers, n, cfg.n_enc_layers
+
+
 def card_equals_cpu(np, torch) -> None:
     """5d. The port on the card (kernels) against the port on the CPU (plain
-    versions), same weights: prefill and 8 decode steps of two smoke configs."""
+    versions), same weights: prefill and 8 decode steps of the smoke
+    configs of every family."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import attention
     from repro_torch.models.lm import build_model
     from repro_torch.runtime.steps import build_prefill_step, build_serve_step
 
-    for arch in ("llama3.2-3b", "qwen1.5-4b"):
+    for arch in ("llama3.2-3b", "qwen1.5-4b", X_ARCH, J_ARCH, "dbrx-132b",
+                 "phi3.5-moe-42b-a6.6b", F_ARCH, V_ARCH):
         cfg = smoke_config(arch)
         model = build_model(cfg)
         cpu = model.init(0, device="cpu", dtype=torch.bfloat16)
         gpu = _tree_to(cpu, "cuda")
-        prompts = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 8)))
+        rng = np.random.default_rng(1)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+        mem = smoke_memory(np, torch, cfg, rng, 2, 8)
+        mem_g = None if mem is None else mem.cuda()
         prefill, step = build_prefill_step(model), build_serve_step(model)
-        tol = max(0.05, 0.02 * cfg.n_layers)
+        tol = None if cfg.n_experts else max(0.05, 0.02 * cfg.n_layers)
         before = dict(attention.launches)
-        pg = prefill(gpu, {"tokens": prompts.cuda()}).cpu().float()
-        pc = prefill(cpu, {"tokens": prompts}).float()
-        check(torch.allclose(pg, pc, atol=tol, rtol=tol), f"{arch}: card != CPU in prefill")
-        errs = [float((pg - pc).abs().max())]
-        cg = model.init_cache(2, 9, device="cuda")
-        cc = model.init_cache(2, 9, device="cpu")
+        pg = prefill(gpu, {"tokens": prompts.cuda(), "memory": mem_g})
+        pc = prefill(cpu, {"tokens": prompts, "memory": mem})
+        errs = [agree(torch, pg, pc, tol, f"{arch}: card != CPU in prefill")]
+        with torch.no_grad():
+            enc_c = model.encode(cpu, mem) if model.encode else mem
+            enc_g = model.encode(gpu, mem_g) if model.encode else mem_g
+        cg = model.init_cache(2, 9, device="cuda", memory=enc_g)
+        cc = model.init_cache(2, 9, device="cpu", memory=enc_c)
         for i in range(8):
             lg, cg = step(gpu, cg, prompts[:, i].cuda())
             lc, cc = step(cpu, cc, prompts[:, i])
-            check(torch.allclose(lg.cpu().float(), lc.float(), atol=tol, rtol=tol),
-                  f"{arch}: card != CPU at decode step {i}")
-            errs.append(float((lg.cpu().float() - lc.float()).abs().max()))
+            errs.append(agree(torch, lg, lc, tol, f"{arch}: card != CPU at decode step {i}"))
         launched = {k: attention.launches[k] - before[k] for k in before}
-        check(all(n > 0 for n in launched.values()), f"{arch}: card side skipped a kernel")
-        emit("card_equals_cpu_model", arch=arch, prefill_max_abs_err=errs[0],
-             decode_max_abs_err=max(errs[1:]), tol=tol, kernel_launches=launched)
+        has_attention = attention_calls(cfg)[0] > 0
+        check(all((n > 0) == has_attention for n in launched.values()),
+              f"{arch}: card side launched {launched}")
+        worst = max(errs[1:], key=lambda e: e.get("kl_max", e["max_abs_err"]))
+        emit("card_equals_cpu_model", arch=arch, prefill=errs[0], decode_worst=worst,
+             kernel_launches=launched)
+
+
+def family_bounds(torch, model, params, B: int, P: int, gen: int, T: int) -> dict:
+    """Least times of phase 7's serve. Prefill: the weights read once, and
+    the products the step computes on the tensor cores (2 flops a weight
+    a token in the decoder, for the experts a weight a row of the [E, C, d]
+    buffer, the K/V projections of cross layers over the T memory rows,
+    the encoder over its T rows, the causal (self) or full (cross,
+    encoder) attention, and the last position's unembedding); the SSD
+    and mLSTM chunk products and the elementwise work are left out. A
+    decode step: every weight but the encoder's and the input embedding's
+    rows (all experts: the batched product runs every expert's buffer),
+    the valid K/V rows (mean length over the generated steps), the memory
+    once, and every recurrent state read and written once."""
+    from repro_torch.models.config import layer_kinds
+    from repro_torch.models.moe import capacity
+
+    cfg = model.cfg
+    d, V, H, KV, D = cfg.d_model, cfg.vocab_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kinds = layer_kinds(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    enc = sum(t.numel() for t in _leaves(params.get("enc", {})))
+    tables = V * d * (1 if cfg.tie_embeddings else 2)
+    expert = 3 * d * cfg.d_ff * cfg.n_experts
+    n_moe = sum(f == "moe" for _, f in kinds)
+    layer = n_params - enc - tables - n_moe * expert
+    n_self = sum(m in ("attn", "attn_cross") for m, _ in kinds)
+    n_cross = sum(m in ("cross", "attn_cross") for m, _ in kinds)
+    tok = B * P
+    flops = 2 * layer * tok + 2 * V * d * B
+    if n_moe:
+        C = capacity(tok, cfg.experts_per_token, cfg.n_experts, cfg.capacity_factor)
+        flops += n_moe * 2 * expert * C
+    flops += n_self * 4 * H * D * B * P * (P + 1) / 2
+    flops += n_cross * (4 * H * D * B * P * T + 2 * 2 * d * KV * D * B * (T - P))
+    if cfg.n_enc_layers:
+        flops += 2 * enc * B * T + cfg.n_enc_layers * 4 * H * D * B * T * T
+    wbytes = 2 * n_params
+    prefill = _larger(wbytes, flops, BF16_OPS_PER_S)
+    mean_len = P + 1 + gen / 2
+    cache = model.init_cache(B, 1, device="cuda")
+    state_bytes = sum(  # the recurrent states: every cache leaf but K/V's
+        t.numel() * t.element_size()
+        for (mixer, _), mc in zip(layer_kinds(cfg), cache["layers"])
+        if mixer in ("mamba", "slstm", "mlstm") for t in _leaves(mc))
+    del cache
+    step_bytes = (2 * (n_params - enc - (0 if cfg.tie_embeddings else V * d))
+                  + n_self * 2 * B * mean_len * KV * D * 2
+                  + (B * T * d * 2 if n_cross else 0) + 2 * state_bytes)
+    return dict(params=n_params, weight_bytes=wbytes, prefill_bound_ms=prefill[0],
+                prefill_bound_by=prefill[1], prefill_flops=flops,
+                decode_step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                decode_step_bytes=step_bytes, state_bytes=state_bytes)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def layer_times(np, torch, model, params, P: int) -> None:
+    """Host wall (ending in a sync) of one layer of each kind of the period,
+    at the prefill shape [B, P, d] and at one decode step (position P of a
+    zero cache), and the sum over the model's layers: where an eager step
+    spends its time by layer kind (the SSD chunk loop, the sLSTM time loop,
+    the MoE dispatch)."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import layer_kinds, layer_period
+    from repro_torch.models.layers import rope_tables
+
+    cfg = model.cfg
+    period = layer_period(cfg)
+    repeats = cfg.n_layers // period
+    B = FAMILY_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((B, P, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    cos, sin = rope_tables(torch.arange(P, device="cuda"), cfg.head_dim, cfg.rope_theta)
+    cos, sin = cos[None], sin[None]
+    cache = model.init_cache(B, P + 2, device="cuda")
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    rows = []
+    with torch.no_grad():
+        for j, (mixer, ffn) in enumerate(layer_kinds(cfg)[:period]):
+            lp = lm._take(params["layers"][j], 0)
+            mc = cache["layers"][j]
+            rows.append(dict(
+                position=j, mixer=mixer, ffn=ffn, layers=repeats,
+                prefill_mixer_ms=wall_ms(lambda: lm._apply_mixer(
+                    lp["mixer"], cfg, mixer, x, cos, sin, None), 3),
+                prefill_ffn_ms=wall_ms(lambda: lm._apply_ffn(lp["ffn"], cfg, ffn, x), 3),
+                decode_mixer_ms=wall_ms(lambda: lm._decode_mixer(
+                    lp["mixer"], cfg, mixer, x[:, :1], P, mc, 0, None), 10),
+                decode_ffn_ms=wall_ms(lambda: lm._apply_ffn(lp["ffn"], cfg, ffn, x[:, :1]), 10),
+            ))
+    by_kind: dict = {}
+    for r in rows:
+        for part, kind in (("mixer", r["mixer"]), ("ffn", r["ffn"])):
+            k = by_kind.setdefault(kind, dict(prefill_ms=0.0, decode_ms=0.0, layers=0))
+            k["prefill_ms"] += r["layers"] * r[f"prefill_{part}_ms"]
+            k["decode_ms"] += r["layers"] * r[f"decode_{part}_ms"]
+            k["layers"] += r["layers"]
+    emit("layer_times", arch=cfg.name, batch=B, prompt=P, rows=rows, by_kind=by_kind,
+         prefill_layers_ms=sum(k["prefill_ms"] for k in by_kind.values()),
+         decode_layers_ms=sum(k["decode_ms"] for k in by_kind.values()))
+    del cache, x
+
+
+def family_phases(np, torch) -> dict:
+    """7. The expert, recurrent and cross-attention families served at
+    their published widths through ``serve_model`` (4 requests each, seed-0
+    bf16 weights, one model on the card at a time): jamba-v0.1-52b cut to
+    one period (two arms: the config's capacity factor, timed, and no
+    drops, gated), xlstm-350m, seamless-m4t-medium over frames and
+    llama-3.2-vision-11b over 1,600 patches. Every count set to 0 just
+    before each serve and read just after; returns the counts by arch."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models.lm import build_model
+    from repro_torch.runtime.steps import build_prefill_step, build_serve_step
+
+    t_phase = time.perf_counter()
+    counts = {}
+
+    def serve_cell(label, cfg, model, params, prompts, gen, memory):
+        for k in attention.launches:
+            attention.launches[k] = 0
+        res = serve_model(model, params, prompts, gen, memory=memory)
+        launches = dict(attention.launches)
+        check(res.all_finite, f"{label}: a logit is not finite")
+        P = prompts.shape[1]
+        pf, dec, enc = attention_calls(cfg)
+        want = {"flash_attention": 2 * pf + (enc if memory is not None else 0),
+                "decode_attention": dec * (P + gen - 1)}
+        check(launches == want, f"{label}: attention launches {launches}, expected {want}")
+        return res, launches
+
+    def load(cfg):
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params = model.init(0, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return model, params, time.perf_counter() - t
+
+    def report(label, model, params, res, launches, init_s, T, **extra):
+        cfg = model.cfg
+        b = family_bounds(torch, model, params, FAMILY_BATCH, res.prompt_len, res.gen, T)
+        emit("family_serve", arch=label, layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+             init_s=init_s, batch=res.batch, prompt=res.prompt_len, gen=res.gen,
+             memory_rows=T, prefill_s=res.prefill_s, prefill_tok_s=res.prefill_tok_s,
+             prompt_decode_s=res.prompt_s, time_to_first_token_s=res.first_token_s,
+             decode_tok_s=res.decode_tok_s, ms_per_decode_step=res.ms_per_step,
+             peak_gib=res.peak_bytes / 2**30, launches=launches,
+             first_tokens=res.tokens[0, :8].tolist(), **b, **extra)
+
+    def prefill_vs_decode(cfg, res, label, by_kl=False):
+        tol = None if by_kl else max(0.05, 0.02 * cfg.n_layers)  # tests/test_models.py:113
+        return agree(torch, res.prompt_logits, res.prefill_logits, tol,
+                     f"{label}: prefill != decode at the last prompt position")
+
+    rng_of = lambda: np.random.default_rng(0)  # noqa: E731
+
+    # -- 7a. jamba at its published widths, one period deep ------------------
+    cfg = dc.replace(get_config(J_ARCH), n_layers=J_LAYERS)
+    model, params, init_s = load(cfg)
+    rng = rng_of()
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FAMILY_BATCH, J_PROMPT))).cuda()
+    res, launches = serve_cell("jamba", cfg, model, params, prompts, J_GEN, None)
+    kl = kl_rows(torch, res.prefill_logits, res.prompt_logits)
+    report(f"{cfg.name}[{J_LAYERS} layers]", model, params, res, launches, init_s, 0,
+           capacity_factor=cfg.capacity_factor,
+           prefill_vs_decode_kl=dict(max=float(kl.max()), mean=float(kl.mean()),
+                                     gated=False))
+    counts[J_ARCH] = launches
+    del res
+    layer_times(np, torch, model, params, J_PROMPT)
+    prefill, step = build_prefill_step(model), build_serve_step(model)
+
+    def run_prefill():
+        return prefill(params, {"tokens": prompts})
+
+    def run_decode():
+        cache = model.init_cache(FAMILY_BATCH, 5, device="cuda")
+        for i in range(4):
+            _, cache = step(params, cache, prompts[:, i])
+
+    for label, fn in (("jamba_prefill", run_prefill), ("jamba_decode_4_steps", run_decode)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        profile_run(label, fn, time.perf_counter() - t)
+    # (ii) no drops: capacity >= T at every call, same weights; gated.
+    cfg2 = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    model2 = build_model(cfg2)
+    res, launches = serve_cell("jamba no-drop", cfg2, model2, params, prompts, 1, None)
+    gate = prefill_vs_decode(cfg2, res, "jamba no-drop", by_kl=True)
+    emit("family_no_drop", arch=cfg.name, layers=J_LAYERS, capacity_factor=cfg2.capacity_factor,
+         prefill_s=res.prefill_s, prompt_decode_s=res.prompt_s, launches=launches, **gate)
+    del model, model2, params, res, prefill, step
+    torch.cuda.empty_cache()
+
+    # -- 7b. xlstm-350m, whole ------------------------------------------------
+    cfg = get_config(X_ARCH)
+    model, params, init_s = load(cfg)
+    prompts = torch.from_numpy(
+        rng_of().integers(0, cfg.vocab_size, (FAMILY_BATCH, X_PROMPT))).cuda()
+    res, launches = serve_cell("xlstm", cfg, model, params, prompts, X_GEN, None)
+    # At its full widths the bf16 gap between the parallel (prefill) and
+    # recurrent (decode) forms exceeds max(0.05, 0.02 * 24) in the JAX
+    # package itself (1.25 within 48 tokens on the CPU, PERF.md §6), so the
+    # bf16 serve is held to the KL bars, and the same weights in float32
+    # compute (prompt decode only) to the reference's tolerance.
+    gate = prefill_vs_decode(cfg, res, "xlstm", by_kl=True)
+    res32, _ = serve_cell("xlstm f32 compute", cfg, build_model(cfg, torch.float32),
+                          params, prompts, 1, None)
+    report(cfg.name, model, params, res, launches, init_s, 0,
+           prefill_vs_decode=gate,
+           prefill_vs_decode_f32_compute=prefill_vs_decode(cfg, res32, "xlstm f32 compute"),
+           f32_compute_prompt_decode_s=res32.prompt_s)
+    counts[X_ARCH] = launches
+    del res, res32
+    layer_times(np, torch, model, params, X_PROMPT)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # -- 7c / 7d. seamless over frames, vision over patches ------------------
+    for arch, P, gen, T in ((F_ARCH, F_PROMPT, F_GEN, F_PROMPT),
+                            (V_ARCH, V_PROMPT, V_GEN, V_PATCHES)):
+        cfg = get_config(arch)
+        model, params, init_s = load(cfg)
+        rng = rng_of()  # memory first, then the prompts (launch/serve.py:40-52)
+        memory = torch.from_numpy(
+            rng.standard_normal((FAMILY_BATCH, T, cfg.d_model)).astype(np.float32)).cuda()
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FAMILY_BATCH, P))).cuda()
+        res, launches = serve_cell(arch, cfg, model, params, prompts, gen, memory)
+        report(cfg.name, model, params, res, launches, init_s, T,
+               prefill_vs_decode=prefill_vs_decode(cfg, res, arch))
+        counts[arch] = launches
+        del model, params, res, memory
+        torch.cuda.empty_cache()
+    emit("family_phase", seconds=time.perf_counter() - t_phase, launches=counts)
+    return counts
 
 
 def production_scenario(np, torch, stream) -> None:
@@ -1267,6 +1630,9 @@ def main() -> int:
 
     # -- 6. the paper's production scenario, exact optima as the oracle -------
     production_scenario(np, torch, stream[:PROFILE_JOBS])
+
+    # -- 7. the expert, recurrent and cross-attention families ----------------
+    family_phases(np, torch)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],

@@ -121,19 +121,18 @@ def lm_params_from_arrays(tree, device=None, dtype=None):
 
 
 def lm_cache_from_arrays(cache, device=None):
-    """The port's decode cache from the JAX package's (``pos`` a 0-d
-    integer array, ``layers`` a tuple of {"k", "v"} dicts, ``memory``
-    None): ``pos`` becomes a Python int, the K/V leaves keep their type."""
+    """The port's decode cache from the JAX package's: ``pos`` (a 0-d
+    integer array) becomes a Python int; ``layers`` (a tuple over the
+    period positions of {"k", "v"} dicts, SSD {"ssm", "conv"} and mLSTM
+    {"C", "n", "m"} states, sLSTM (c, n, m, h) tuples and the empty dicts
+    of cross layers) and ``memory`` (None, or the encoded frames or
+    patches) keep each leaf's type and their structure."""
     dev = resolve_device(device)
-    if cache.get("memory") is not None:
-        raise NotImplementedError(
-            "a cache with cross-attention memory belongs to a later slice "
-            "(ROADMAP Queue 1 item 8)"
-        )
+    memory = cache.get("memory")
     return {
         "pos": int(np.asarray(cache["pos"])),
         "layers": _map(tuple(cache["layers"]), lambda a: _leaf_to_tensor(a, dev, None)),
-        "memory": None,
+        "memory": None if memory is None else _leaf_to_tensor(memory, dev, None),
     }
 
 

@@ -1,4 +1,4 @@
-"""Serving launcher: batched KV-cache decode of a dense language model
+"""Serving launcher: batched KV-cache decode of a language model
 (counterpart of ``repro.launch.serve``).
 
   python -m repro_torch.launch.serve --arch llama3.2-3b --batch 4 --gen 32
@@ -13,6 +13,12 @@ waits for the prompt decode; the prefill step fills no cache, and its
 last-position logits check the decode loop's. It runs on the CUDA card; a CPU
 run must be asked for with ``--device cpu``. ``--smoke`` (the default)
 serves the reduced config; ``--no-smoke`` the published widths.
+
+An encoder-decoder model (``n_enc_layers``) serves over random frames
+[B, prompt, d], a cross-attention model over random patches [B, 16, d],
+both drawn from the seed's generator before the prompts, as the JAX
+launcher draws them (``launch/serve.py:40-52``): the prefill step takes
+the raw memory, the cache the encoded one.
 """
 
 from __future__ import annotations
@@ -76,10 +82,14 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_model(model: Model, params, prompts: torch.Tensor, gen: int) -> ServeResult:
+def serve_model(model: Model, params, prompts: torch.Tensor, gen: int,
+                memory: torch.Tensor | None = None) -> ServeResult:
     """Prefill, then decode ``prompts`` [B, P] into a fresh cache and
     generate ``gen`` tokens greedily; every phase timed on the host clock
-    ending in a device sync."""
+    ending in a device sync. ``memory`` is the raw frames or patches
+    [B, T, d] of a model that cross-attends: the prefill step takes it as
+    it is, the cache takes it encoded (the encoder runs inside the prompt
+    decode's time, before its first step)."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     B, P = prompts.shape
@@ -89,16 +99,20 @@ def serve_model(model: Model, params, prompts: torch.Tensor, gen: int) -> ServeR
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
-    prefill(params, {"tokens": prompts})  # warm-up
+    batch = {"tokens": prompts, "memory": memory}
+    prefill(params, batch)  # warm-up
     _sync(dev)
     t = time.perf_counter()
-    prefill_logits = prefill(params, {"tokens": prompts})
+    prefill_logits = prefill(params, batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t
 
-    cache = model.init_cache(B, P + gen + 1, device=dev)
     finite = torch.isfinite(prefill_logits).all()
     t = time.perf_counter()
+    if memory is not None and model.encode is not None:
+        with torch.no_grad():
+            memory = model.encode(params, memory)
+    cache = model.init_cache(B, P + gen + 1, device=dev, memory=memory)
     for i in range(P):
         logits, cache = step(params, cache, prompts[:, i])
         finite &= torch.isfinite(logits).all()
@@ -139,14 +153,20 @@ def serve(
     device=None,
 ) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt`` tokens (numpy, from
-    ``seed``) with weights drawn from ``seed`` and held in bf16."""
+    ``seed``) with weights drawn from ``seed`` and held in bf16; frames
+    or patches first where the model cross-attends."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     params = model.init(seed, device=dev, dtype=torch.bfloat16)
     rng = np.random.default_rng(seed)
+    memory = None
+    if cfg.n_enc_layers or cfg.cross_attn_every:
+        T = prompt if cfg.n_enc_layers else 16
+        memory = torch.from_numpy(
+            rng.standard_normal((batch, T, cfg.d_model)).astype(np.float32)).to(dev)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(dev)
-    return serve_model(model, params, prompts, gen)
+    return serve_model(model, params, prompts, gen, memory=memory)
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:

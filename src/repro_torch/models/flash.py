@@ -10,7 +10,7 @@ itself, so any S and T work and there is no ``block_kv`` to choose.
 Only inference is ported: under autograd, with an input that requires a
 gradient, this raises. The backward pass (``flash.py:108`` of the JAX
 package) is the training slice's ``torch.autograd.Function`` (ROADMAP
-Queue 1 item 8).
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def flash_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention has no backward pass yet: it belongs to the "
-            "training slice of the port (ROADMAP Queue 1 item 8); call it "
+            "training slice of the port (ROADMAP Queue 1 item 7); call it "
             "under torch.no_grad() or torch.inference_mode()"
         )
     return ops.flash_attention(q, k, v, causal=causal)

@@ -9,12 +9,14 @@ Conventions kept from the JAX package:
     ``apply_rope`` works in fp32 and casts back, ``linear`` casts the
     weight to the activation's type.
   * The inner attention is the port's kernels: a whole sequence (any S,
-    one token included) goes through
+    one token of self-attention included) goes through
     :func:`repro_torch.models.flash.flash_attention`, decode through
     :func:`repro_torch.kernels.ops.decode_attention`. Neither repeats the
     KV heads: the kernels fold the G group heads themselves. The JAX
     package's plain ``_sdpa`` has no counterpart: the flash kernel takes
-    its one-token case and the decode kernel its ``kv_len`` case.
+    its one-token self-attention case, and the decode kernel its
+    ``kv_len`` case and its one-token cross-attention case (one query
+    row over all T rows of the memory, ``kv_len = T``).
 
 The JAX package's ``shard`` / ``activation_sharding`` hooks do nothing
 without a mesh; on one card they have no counterpart here.
@@ -151,16 +153,28 @@ def attention(
     n_kv_heads: int,
     head_dim: int,
     causal: bool = True,
+    kv_input: torch.Tensor | None = None,  # cross-attention source [B, T, d]
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Self-attention over the whole sequence (training forward / prefill).
-    Cross-attention (``kv_input``) belongs to a later slice."""
+    """Attention over the whole sequence (training forward / prefill).
+
+    With ``kv_input`` the keys and values are projected from it
+    (cross-attention): no RoPE on either side and no causal mask
+    (``layers.py:220-263`` of the JAX package). One query token against a
+    memory goes through the decode kernel with ``kv_len = T``."""
     B, S, _ = x.shape
+    src = x if kv_input is None else kv_input
+    T = src.shape[1]
     q = linear(params["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, S, n_kv_heads, head_dim)
-    v = linear(params["wv"], x).reshape(B, S, n_kv_heads, head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = flash_attention(q, k, v, causal)
+    k = linear(params["wk"], src).reshape(B, T, n_kv_heads, head_dim)
+    v = linear(params["wv"], src).reshape(B, T, n_kv_heads, head_dim)
+    if use_rope and kv_input is None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if S == 1 and kv_input is not None:
+        out = ops.decode_attention(q.reshape(B, n_heads, head_dim), k, v, T)
+    else:
+        out = flash_attention(q, k, v, causal and kv_input is None)
     return linear(params["wo"], out.reshape(B, S, n_heads * head_dim))
 
 

@@ -1,25 +1,30 @@
-"""Model builder for the dense family (counterpart of ``repro.models.lm``).
+"""Model builder for every architecture family (counterpart of
+``repro.models.lm``).
 
 ``build_model(cfg)`` returns a :class:`Model` with the serving functions:
 
-  init(seed, device=None, dtype=fp32) -> params
-  hidden(params, tokens)              -> (final hidden [B, S, d], aux)
-  forward(params, tokens)             -> (logits [B, S, V], aux)
-  prefill(params, tokens)             -> last-position logits [B, 1, V]
-  init_cache(batch, max_len, device)  -> cache (decode state)
-  decode_step(params, cache, token)   -> (logits [B, 1, V], cache)
+  init(seed, device=None, dtype=fp32)              -> params
+  encode(params, frames)                           -> memory (enc-dec only)
+  hidden(params, tokens, memory=None)              -> (final hidden [B, S, d], aux)
+  forward(params, tokens, memory=None)             -> (logits [B, S, V], aux)
+  prefill(params, tokens, memory=None)             -> last-position logits [B, 1, V]
+  init_cache(batch, max_len, device, memory=None)  -> cache (decode state)
+  decode_step(params, cache, token)                -> (logits [B, 1, V], cache)
+
+Mixers: attn (causal self), attn_cross (self + cross), cross (cross-only),
+mamba (SSD), slstm, mlstm. FFNs: mlp (SwiGLU), moe, none. ``memory`` is
+the raw frames of an encoder-decoder model (``forward`` and ``prefill``
+encode them) or the patches of a cross-attention model; the decode cache
+holds the encoded memory.
 
 The parameter tree is the JAX package's: nested dicts, with the layers of
 each position of the layer-kind period stacked along a leading repeat
 axis, so that weights carry across leaf by leaf
 (:func:`repro_torch.interop.lm_params_from_arrays`). The JAX package's
 layer scan is a Python loop over the repeats here, with the whole period
-applied inside each repeat (the layer order of ``lm.py:463-476``).
-
-This slice covers the ``attn`` mixer and the ``mlp`` FFN: llama3.2-3b,
-qwen1.5-4b, phi3-mini and deepseek-67b. Other layer kinds, encoders and
-the training loss belong to later slices (ROADMAP Queue 1 item 8) and
-raise ``NotImplementedError``.
+applied inside each repeat (the layer order of ``lm.py:463-476``). The
+training loss belongs to the training slice (ROADMAP Queue 1 item 7) and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig, layer_kinds, layer_period
 from repro_torch.models.layers import (
     attention,
@@ -47,18 +54,7 @@ from repro_torch.models.layers import (
 
 Params = Any
 
-__all__ = ["Model", "build_model", "count_params"]
-
-# Layer kinds of later slices -> the ROADMAP Queue 1 item 8 part that ports them.
-_LATER = {
-    "moe": "models/moe.py",
-    "mamba": "models/ssm.py",
-    "slstm": "models/ssm.py",
-    "mlstm": "models/ssm.py",
-    "cross": "cross-attention and the encoder",
-    "attn_cross": "cross-attention and the encoder",
-    "none": "models/ssm.py",  # xLSTM blocks carry no separate FFN
-}
+__all__ = ["Model", "build_model", "count_params", "active_param_fraction"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,38 +64,190 @@ class Model:
     forward: Callable
     init_cache: Callable
     decode_step: Callable
+    loss: Callable
     hidden: Callable
     prefill: Callable
+    encode: Callable | None = None  # enc-dec only: frames -> memory
 
 
 def _take(tree: Any, i: int) -> Any:
     """Repeat ``i`` of a stacked parameter or cache tree (views, no copy)."""
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_take(v, i) for v in tree)
     return tree[i]
 
 
 def _stack(trees: list) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(_stack(list(ts)) for ts in zip(*trees))
     return torch.stack(trees, dim=0)
 
 
+def _store(stacked: Any, i: int, tree: Any) -> None:
+    """Write ``tree`` into repeat ``i`` of a stacked cache tree, in place."""
+    if isinstance(stacked, dict):
+        for k in stacked:
+            _store(stacked[k], i, tree[k])
+    elif isinstance(stacked, tuple):
+        for s, t in zip(stacked, tree):
+            _store(s, i, t)
+    else:
+        stacked[i].copy_(tree)
+
+
+# Recurrent mixers: parameter key, zero decode state, one decode step.
+_RECURRENT = {
+    "mamba": ("ssd", ssm.ssd_init_state, ssm.ssd_decode_step),
+    "slstm": ("cell", ssm.slstm_init_state, ssm.slstm_decode_step),
+    "mlstm": ("cell", ssm.mlstm_init_state, ssm.mlstm_decode_step),
+}
+
+
+# --------------------------------------------------------------------------
+# Per-kind layer init
+# --------------------------------------------------------------------------
+
+def _init_mixer(gen: torch.Generator, cfg: ModelConfig, mixer: str, dtype) -> Params:
+    norm = init_rms_norm(cfg.d_model, gen.device, dtype)
+    if mixer in ("attn", "cross", "attn_cross"):
+        p = {
+            "norm": norm,
+            "attn": init_attention(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                qkv_bias=cfg.qkv_bias, dtype=dtype,
+            ),
+        }
+        if mixer == "attn_cross":
+            p["xnorm"] = init_rms_norm(cfg.d_model, gen.device, dtype)
+            p["xattn"] = init_attention(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype=dtype
+            )
+        return p
+    if mixer == "mamba":
+        return {"norm": norm, "ssd": ssm.init_ssd(gen, cfg, dtype)}
+    if mixer == "slstm":
+        return {"norm": norm, "cell": ssm.init_slstm(gen, cfg, dtype)}
+    if mixer == "mlstm":
+        return {"norm": norm, "cell": ssm.init_mlstm(gen, cfg, dtype)}
+    raise ValueError(mixer)
+
+
+def _init_ffn(gen: torch.Generator, cfg: ModelConfig, ffn: str, dtype) -> Params:
+    if ffn == "none":
+        return {}
+    norm = init_rms_norm(cfg.d_model, gen.device, dtype)
+    if ffn == "mlp":
+        return {"norm": norm, "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)}
+    if ffn == "moe":
+        return {
+            "norm": norm,
+            "moe": moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype),
+        }
+    raise ValueError(ffn)
+
+
+# --------------------------------------------------------------------------
+# Layer application: whole sequence, and one token against the cache
+# --------------------------------------------------------------------------
+
+def _apply_mixer(lp, cfg: ModelConfig, mixer: str, x, cos, sin, memory):
+    h = rms_norm(lp["norm"], x, cfg.norm_eps)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    if mixer == "attn":
+        return x + attention(lp["attn"], h, cos, sin, *heads)
+    if mixer == "cross":
+        return x + attention(
+            lp["attn"], h, cos, sin, *heads, causal=False, kv_input=memory, use_rope=False
+        )
+    if mixer == "attn_cross":
+        x = x + attention(lp["attn"], h, cos, sin, *heads)
+        h2 = rms_norm(lp["xnorm"], x, cfg.norm_eps)
+        return x + attention(
+            lp["xattn"], h2, cos, sin, *heads, causal=False, kv_input=memory, use_rope=False
+        )
+    if mixer == "mamba":
+        y, _ = ssm.ssd_forward(lp["ssd"], cfg, h)
+    elif mixer == "slstm":
+        y, _ = ssm.slstm_forward(lp["cell"], cfg, h)
+    elif mixer == "mlstm":
+        y, _ = ssm.mlstm_forward(lp["cell"], cfg, h)
+    else:
+        raise ValueError(mixer)
+    return x + y
+
+
+def _apply_ffn(lp, cfg: ModelConfig, ffn: str, x):
+    """(x after the FFN, the MoE aux loss or None)."""
+    if ffn == "none":
+        return x, None
+    h = rms_norm(lp["norm"], x, cfg.norm_eps)
+    if ffn == "mlp":
+        return x + mlp_swiglu(lp["mlp"], h), None
+    y, aux = moe_mod.moe_ffn(
+        lp["moe"], h, cfg.n_experts, cfg.experts_per_token,
+        capacity_factor=cfg.capacity_factor, normalize=cfg.router_normalize,
+    )
+    return x + y, aux
+
+
+def _mixer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
+                 repeats: int, dev: torch.device):
+    """Zero decode state of one period position, stacked over the repeats
+    (``lm.py:184-204``); cross layers keep none (the memory is shared)."""
+    if mixer in ("attn", "attn_cross"):
+        shape = (repeats, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+        }
+    if mixer == "cross":
+        return {}
+    init_state = _RECURRENT[mixer][1]
+    return _stack([init_state(cfg, batch, dev) for _ in range(repeats)])
+
+
+def _decode_mixer(lp, cfg: ModelConfig, mixer: str, x, pos: int, mc, rep: int, memory):
+    """One token through one mixer; K/V rows and recurrent states are
+    written into repeat ``rep`` of the stacked cache ``mc`` in place."""
+    h = rms_norm(lp["norm"], x, cfg.norm_eps)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    if mixer in ("attn", "attn_cross"):
+        out, _, _ = decode_attention(
+            lp["attn"], h, pos, mc["k"][rep], mc["v"][rep], cfg.rope_theta, *heads
+        )
+        x = x + out
+        if mixer == "attn_cross":
+            h2 = rms_norm(lp["xnorm"], x, cfg.norm_eps)
+            x = x + attention(
+                lp["xattn"], h2, None, None, *heads, causal=False, kv_input=memory,
+                use_rope=False,
+            )
+        return x
+    if mixer == "cross":
+        return x + attention(
+            lp["attn"], h, None, None, *heads, causal=False, kv_input=memory, use_rope=False
+        )
+    if mixer not in _RECURRENT:
+        raise ValueError(mixer)
+    key, _, step = _RECURRENT[mixer]
+    y, state = step(lp[key], cfg, h, _take(mc, rep))
+    _store(mc, rep, state)
+    return x + y
+
+
+# --------------------------------------------------------------------------
+# Model assembly
+# --------------------------------------------------------------------------
+
 def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
     kinds = layer_kinds(cfg)
-    later = {_LATER[m] for m, _ in kinds if m != "attn"}
-    later |= {_LATER[f] for _, f in kinds if f != "mlp"}
-    if cfg.n_enc_layers:
-        later.add(_LATER["cross"])
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense family (attn + mlp) so "
-            f"far; {', '.join(sorted(later))} belong to a later slice "
-            "(ROADMAP Queue 1 item 8)"
-        )
     period = layer_period(cfg)
     repeats = cfg.n_layers // period
-    n_pos = period  # every position is (attn, mlp)
+    pkinds = kinds[:period]
     eps = cfg.norm_eps
 
     # ---------------- init ----------------
@@ -120,101 +268,128 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
         if not cfg.tie_embeddings:
             params["out"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
         stacks = []
-        for _ in range(n_pos):
+        for mixer, ffn in pkinds:
             per_repeat = [
-                {
-                    "mixer": {
-                        "norm": init_rms_norm(cfg.d_model, dev, dtype),
-                        "attn": init_attention(
-                            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                            cfg.head_dim, qkv_bias=cfg.qkv_bias, dtype=dtype,
-                        ),
-                    },
-                    "ffn": {
-                        "norm": init_rms_norm(cfg.d_model, dev, dtype),
-                        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
-                    },
-                }
+                {"mixer": _init_mixer(gen, cfg, mixer, dtype),
+                 "ffn": _init_ffn(gen, cfg, ffn, dtype)}
                 for _ in range(repeats)
             ]
             stacks.append(_stack(per_repeat))
             del per_repeat
         params["layers"] = tuple(stacks)
+        if cfg.n_enc_layers:
+            enc = [
+                {"mixer": _init_mixer(gen, cfg, "attn", dtype),
+                 "ffn": _init_ffn(gen, cfg, "mlp", dtype)}
+                for _ in range(cfg.n_enc_layers)
+            ]
+            params["enc"] = {"layers": _stack(enc),
+                             "norm": init_rms_norm(cfg.d_model, dev, dtype)}
         return params
 
-    def _ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
-        return x + mlp_swiglu(lp["mlp"], rms_norm(lp["norm"], x, eps))
+    def _rope(S: int, device):
+        cos, sin = rope_tables(torch.arange(S, device=device), cfg.head_dim, cfg.rope_theta)
+        return cos[None], sin[None]
+
+    # ---------------- encoder (enc-dec only) ----------------
+    def encode(params: Params, memory_in: torch.Tensor) -> torch.Tensor:
+        """Non-causal encoder over stub frame embeddings [B, S, d]."""
+        x = memory_in.to(compute_dtype)
+        cos, sin = _rope(x.shape[1], x.device)
+        enc = params["enc"]
+        for i in range(cfg.n_enc_layers):
+            lp = _take(enc["layers"], i)
+            h = rms_norm(lp["mixer"]["norm"], x, eps)
+            x = x + attention(
+                lp["mixer"]["attn"], h, cos, sin, cfg.n_heads, cfg.n_kv_heads,
+                cfg.head_dim, causal=False,
+            )
+            h2 = rms_norm(lp["ffn"]["norm"], x, eps)
+            x = x + mlp_swiglu(lp["ffn"]["mlp"], h2)
+        return rms_norm(enc["norm"], x, eps)
 
     # ---------------- hidden trunk ----------------
-    def hidden(params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Final hidden states [B, S, d] and the aux loss (0 for dense)."""
+    def hidden(
+        params: Params,
+        tokens: torch.Tensor,                # [B, S]
+        memory: torch.Tensor | None = None,  # [B, T, d] frames / patches
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Final hidden states [B, S, d] and the accumulated aux loss."""
         x = embed(params["embed"], tokens, compute_dtype)
-        S = x.shape[1]
-        cos, sin = rope_tables(
-            torch.arange(S, device=x.device), cfg.head_dim, cfg.rope_theta
-        )
-        cos, sin = cos[None], sin[None]
+        cos, sin = _rope(x.shape[1], x.device)
+        mem = None
+        if cfg.n_enc_layers:
+            if memory is None:
+                raise ValueError(f"{cfg.name} is an encoder-decoder model: pass the frames")
+            mem = encode(params, memory)
+        elif memory is not None:
+            mem = memory.to(compute_dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for rep in range(repeats):
-            for j in range(n_pos):
+            period_aux = None  # the period's sum, then the total (lm.py:355, :367)
+            for j, (mixer, ffn) in enumerate(pkinds):
                 lp = _take(params["layers"][j], rep)
-                h = rms_norm(lp["mixer"]["norm"], x, eps)
-                x = x + attention(
-                    lp["mixer"]["attn"], h, cos, sin, cfg.n_heads,
-                    cfg.n_kv_heads, cfg.head_dim,
-                )
-                x = _ffn(lp["ffn"], x)
-        x = rms_norm(params["norm"], x, eps)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                x = _apply_mixer(lp["mixer"], cfg, mixer, x, cos, sin, mem)
+                x, a = _apply_ffn(lp["ffn"], cfg, ffn, x)
+                if a is not None:
+                    period_aux = a if period_aux is None else period_aux + a
+            if period_aux is not None:
+                aux = aux + period_aux
+        return rms_norm(params["norm"], x, eps), aux
 
     def out_table(params: Params) -> Params:
         return params["embed"] if cfg.tie_embeddings else params["out"]
 
     # ---------------- forward (logits; small-model / test path) ----------
-    def forward(params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x, aux = hidden(params, tokens)
+    def forward(params: Params, tokens: torch.Tensor, memory: torch.Tensor | None = None):
+        x, aux = hidden(params, tokens, memory)
         return unembed(out_table(params), x), aux
 
+    # ---------------- loss: the training slice ----------------
+    def loss(params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError(
+            "the training loss belongs to the training slice of the port "
+            "(ROADMAP Queue 1 item 7)"
+        )
+
     # ---------------- prefill (serving: last-position logits) -------------
-    def prefill(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        x, _ = hidden(params, tokens)
+    def prefill(params: Params, tokens: torch.Tensor, memory: torch.Tensor | None = None):
+        x, _ = hidden(params, tokens, memory)
         return unembed(out_table(params), x[:, -1:, :])
 
     # ---------------- decode ----------------
-    def init_cache(batch: int, max_len: int, device=None) -> dict[str, Any]:
-        """Zero bf16 K/V caches [repeats, batch, max_len, KV, D] per period
-        position (``lm.py:188``) and position 0."""
+    def init_cache(batch: int, max_len: int, device=None,
+                   memory: torch.Tensor | None = None) -> dict[str, Any]:
+        """Zero decode state per period position, stacked over the repeats
+        (bf16 K/V caches [repeats, batch, max_len, KV, D], recurrent
+        states), position 0, and ``memory``: the encoded frames or the
+        patches that cross-attention reads."""
         dev = resolve_device(device)
-        shape = (repeats, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         layers = tuple(
-            {
-                "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            }
-            for _ in range(n_pos)
+            _mixer_cache(cfg, mixer, batch, max_len, repeats, dev) for mixer, _ in pkinds
         )
-        return {"pos": 0, "layers": layers, "memory": None}
+        return {"pos": 0, "layers": layers, "memory": memory}
 
     def decode_step(
         params: Params, cache: dict[str, Any], token: torch.Tensor  # [B]
     ) -> tuple[torch.Tensor, dict[str, Any]]:
-        """One token per row at position ``cache["pos"]``. The K/V rows are
-        written into the cache's tensors in place; the returned cache
-        shares them and holds ``pos + 1``."""
+        """One token per row at position ``cache["pos"]``. K/V rows and
+        recurrent states are written into the cache's tensors in place; the
+        returned cache shares them and holds ``pos + 1``."""
         x = embed(params["embed"], token[:, None], compute_dtype)  # [B, 1, d]
         pos = int(cache["pos"])
+        mem = cache.get("memory")
+        if mem is not None:
+            mem = mem.to(compute_dtype)
         for rep in range(repeats):
-            for j in range(n_pos):
+            for j, (mixer, ffn) in enumerate(pkinds):
                 lp = _take(params["layers"][j], rep)
-                mc = cache["layers"][j]
-                h = rms_norm(lp["mixer"]["norm"], x, eps)
-                out, _, _ = decode_attention(
-                    lp["mixer"]["attn"], h, pos, mc["k"][rep], mc["v"][rep],
-                    cfg.rope_theta, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                )
-                x = _ffn(lp["ffn"], x + out)
+                x = _decode_mixer(lp["mixer"], cfg, mixer, x, pos, cache["layers"][j], rep, mem)
+                x, _ = _apply_ffn(lp["ffn"], cfg, ffn, x)
         x = rms_norm(params["norm"], x, eps)
         logits = unembed(out_table(params), x)
-        return logits, {"pos": pos + 1, "layers": cache["layers"], "memory": None}
+        return logits, {"pos": pos + 1, "layers": cache["layers"],
+                        "memory": cache.get("memory")}
 
     return Model(
         cfg=cfg,
@@ -222,10 +397,16 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
         forward=forward,
         init_cache=init_cache,
         decode_step=decode_step,
+        loss=loss,
         hidden=hidden,
         prefill=prefill,
+        encode=encode if cfg.n_enc_layers else None,
     )
 
+
+# --------------------------------------------------------------------------
+# Parameter accounting
+# --------------------------------------------------------------------------
 
 def count_params(params: Params) -> int:
     if isinstance(params, dict):
@@ -233,3 +414,17 @@ def count_params(params: Params) -> int:
     if isinstance(params, (tuple, list)):
         return sum(count_params(v) for v in params)
     return params.numel()
+
+
+def active_param_fraction(cfg: ModelConfig) -> float:
+    """Fraction of FFN params active per token (MoE top-k / E); 1.0 dense."""
+    if not cfg.n_experts:
+        return 1.0
+    kinds = layer_kinds(cfg)
+    moe_layers = sum(1 for _, f in kinds if f == "moe")
+    mlp_layers = sum(1 for _, f in kinds if f == "mlp")
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    moe_total = moe_layers * cfg.n_experts * per_expert
+    moe_active = moe_layers * cfg.experts_per_token * per_expert
+    rest = mlp_layers * per_expert  # dense MLP layers
+    return (moe_active + rest) / max(moe_total + rest, 1)

@@ -3,7 +3,7 @@
 
 PyTorch runs eagerly, so a step is a plain function of its state; there
 is nothing to jit. The training step (``build_train_step``) belongs to
-the training slice (ROADMAP Queue 1 item 8).
+the training slice (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -20,11 +20,12 @@ Params = Any
 
 
 def build_prefill_step(model: Model) -> Callable:
-    """prefill_step(params, batch) -> last-position logits [B, 1, V]."""
+    """prefill_step(params, batch) -> last-position logits [B, 1, V];
+    ``batch["memory"]``, where given, is the raw frames or patches."""
 
     @torch.no_grad()
     def prefill_step(params: Params, batch: dict[str, torch.Tensor]):
-        return model.prefill(params, batch["tokens"])
+        return model.prefill(params, batch["tokens"], memory=batch.get("memory"))
 
     return prefill_step
 

@@ -22,6 +22,7 @@ def test_import_loads_neither_jax_nor_reference_package():
         import repro_torch, repro_torch.core, repro_torch.online
         import repro_torch.kernels.ops, repro_torch.interop
         import repro_torch.models, repro_torch.models.lm, repro_torch.configs
+        import repro_torch.models.moe, repro_torch.models.ssm
         import repro_torch.runtime.steps, repro_torch.launch.serve
         import repro_torch.kernels.attention
         import repro_torch.distribution.plan
