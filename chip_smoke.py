@@ -10,8 +10,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 
   0. prints the card's name and power limit, the torch and CUDA versions,
      the build time, the registers, spills and shared memory of each bf16
-     flash instantiation, and the registers and spills of each decode and
-     cpm one (a cpm spill fails the run);
+     flash instantiation, and the registers and spills of each decode,
+     cpm and flash backward one (a cpm or backward spill fails the run);
   1. holds every kernel entry point against its plain PyTorch version on
      the card (tolerance 0: ``torch.equal``) at the offline main-path
      shape, the serving shape and ragged shapes, and times both with CUDA
@@ -91,17 +91,36 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      n_layers); every serve checks finite logits and the exact flash and
      decode launch counts of its layer kinds, and reports its bounds;
 
+  8. trains llama3.2-3b: 8a holds the flash forward with its
+     log-sum-exp and the three backward kernels (delta, dk and dv, dq)
+     against their plain versions at the training shapes (llama3.2-3b's
+     heads at B 4, S = T 1,024, causal, bf16 and float32; D 96 causal; D
+     64 non-causal, the encoder's; a ragged S of 1,000) at the attention
+     bars, and times each by CUDA events and alone in a CUDA graph beside
+     the plain version, SDPA's forward and backward and the bound; 8b
+     trains llama3.2-3b at its published widths (f32 master weights from
+     seed 0, bf16 compute, global batch 8 x 1,024 tokens from the port's
+     pipeline in 2 micro-batches, AdamW(warmup 2, total 4), 4 steps)
+     through ``launch/train.py``'s ``train`` with exact launch counts,
+     reports ms a step, tokens/s, MFU, the bound and peak memory, checks
+     finite losses, grad_norm > 0 and moved parameters, then profiles one
+     more step; 8c holds the step with kernels against the same step with
+     the plain versions on the card (the widths cut to 2 layers, 2 steps);
+     8d saves, restores (torch.equal) and resumes the smoke config's
+     training;
+
 and prints the kernel table and, as its last line,
 ``{"ok": true, "device": {...}}``. Every check raises on failure. It
 exits non-zero, printing no result, when no card is available or when
 ``src/repro_torch`` is missing. Each main path reads its own launch
-counts: the scheduler's (phases 2 and 3), the serving path's (phase 5b)
-and each family's serve (phase 7), every count set to 0 just before and
-read just after.
+counts: the scheduler's (phases 2 and 3), the serving path's (phase 5b),
+each family's serve (phase 7) and the training path's (phase 8b), every
+count set to 0 just before and read just after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -135,7 +154,7 @@ GOLDEN_FLEET_COUNTERS = dict(
 # The port's own kernels (csrc/*.cu), reported by name in every profile.
 PORT_KERNELS = ("cpm_lanes_kernel", "cpm_fleet_kernel", "cpm_rows_kernel",
                 "cpm_fleet_rows_kernel", "flash_fwd_", "decode_split_kernel",
-                "decode_combine_kernel")
+                "decode_combine_kernel", "flash_bwd_")
 
 SERVE_JOBS = 200
 PROFILE_JOBS = 20
@@ -151,6 +170,10 @@ SOURCE = {
     "fleet_lb_masked": CSRC + "cpm.cu",
     "flash_attention": CSRC + "flash_attention.cu",
     "decode_attention": CSRC + "decode_attention.cu",
+    "flash_attention_lse": CSRC + "flash_attention.cu",
+    "flash_bwd_delta": CSRC + "flash_attention_bwd.cu",
+    "flash_bwd_dkdv": CSRC + "flash_attention_bwd.cu",
+    "flash_bwd_dq": CSRC + "flash_attention_bwd.cu",
 }
 REPLACES = {
     "combined_lb": "src/repro/kernels/cpm.py:93",
@@ -161,6 +184,13 @@ REPLACES = {
     "fleet_lb_masked": "src/repro/kernels/cpm.py:101",
     "flash_attention": "src/repro/kernels/flash_attention.py:29",
     "decode_attention": "src/repro/kernels/decode_attention.py:27",
+    # The Pallas kernel's forward with the residual lse of the custom VJP's
+    # forward (src/repro/models/flash.py:92); no Pallas backward exists, the
+    # backward kernels replace the custom VJP's jnp backward.
+    "flash_attention_lse": "src/repro/kernels/flash_attention.py:29",
+    "flash_bwd_delta": "src/repro/models/flash.py:108",
+    "flash_bwd_dkdv": "src/repro/models/flash.py:108",
+    "flash_bwd_dq": "src/repro/models/flash.py:108",
 }
 
 # The serving cell: llama3.2-3b at its published widths.
@@ -184,6 +214,20 @@ ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 4e-2}
 # output once (about 2**-9 each) and the kernel rounds p before P.V;
 # 1e-2 is about 2.5x what that gives and about 1% of a row.
 ATTN_ROW_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 1e-2}
+# Phase 8: the training path. llama3.2-3b at its published widths, f32
+# master weights from seed 0, bf16 compute, AdamW(warmup 2, total 4), a
+# global batch of 8 x 1,024 tokens from the port's pipeline in 2
+# micro-batches, 4 steps (the first warms up); 8c cuts the widths' depth to
+# 2 layers. Every leaf's update in 8c is held within UPDATE_REL_TOL of the
+# plain versions' (||du - dv|| / ||dv||): Adam's first steps move each
+# weight by about lr * sign(g), so an entry whose gradient is within the
+# bf16 noise may move the other way; two bf16 implementations of the whole
+# model (the port and the JAX package, smoke config, two steps) differ by
+# up to 0.13 per leaf, unrelated updates by about sqrt(2).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = "llama3.2-3b", 8, 1024, 2, 4
+TRAIN_CUT_LAYERS, TRAIN_CUT_STEPS = 2, 2
+UPDATE_REL_TOL = 0.25
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def emit(tag: str, **fields) -> None:
@@ -463,6 +507,26 @@ def flash_ptxas(log: str, lib) -> list[dict]:
             out.append(cur)
             cur = None
     return sorted(out, key=lambda r: r["D"])
+
+
+def flash_bwd_ptxas(log: str) -> list[dict]:
+    """Registers and spills of each backward instantiation (kernel, dtype,
+    D), from nvcc's ``-Xptxas -v`` report."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"(flash_bwd_\w+?)(?:ILi(\d+)E|I(f|13__nv_bfloat16)E)", line)
+            cur = None if m is None else dict(
+                kernel=m.group(1), D=int(m.group(2) or 0),
+                dtype={"f": "f32", None: ""}.get(m.group(3), "bf16"))
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.append(cur)
+            cur = None
+    return sorted(out, key=lambda r: (r["kernel"], r["dtype"], r["D"]))
 
 
 def flash_flops(q, k, causal: bool) -> int:
@@ -879,7 +943,9 @@ def card_equals_cpu(np, torch) -> None:
             errs.append(agree(torch, lg, lc, tol, f"{arch}: card != CPU at decode step {i}"))
         launched = {k: attention.launches[k] - before[k] for k in before}
         has_attention = attention_calls(cfg)[0] > 0
-        check(all((n > 0) == has_attention for n in launched.values()),
+        check(all((launched[k] > 0) == has_attention
+                  for k in ("flash_attention", "decode_attention"))
+              and all(launched[k] == 0 for k in ("flash_attention_lse",) + BWD_KERNELS),
               f"{arch}: card side launched {launched}")
         worst = max(errs[1:], key=lambda e: e.get("kl_max", e["max_abs_err"]))
         emit("card_equals_cpu_model", arch=arch, prefill=errs[0], decode_worst=worst,
@@ -1030,8 +1096,9 @@ def family_phases(np, torch) -> dict:
         check(res.all_finite, f"{label}: a logit is not finite")
         P = prompts.shape[1]
         pf, dec, enc = attention_calls(cfg)
-        want = {"flash_attention": 2 * pf + (enc if memory is not None else 0),
-                "decode_attention": dec * (P + gen - 1)}
+        want = {k: 0 for k in launches}  # serving launches no training kernel
+        want.update(flash_attention=2 * pf + (enc if memory is not None else 0),
+                    decode_attention=dec * (P + gen - 1))
         check(launches == want, f"{label}: attention launches {launches}, expected {want}")
         return res, launches
 
@@ -1143,6 +1210,336 @@ def family_phases(np, torch) -> dict:
         torch.cuda.empty_cache()
     emit("family_phase", seconds=time.perf_counter() - t_phase, launches=counts)
     return counts
+
+
+def check_grad(torch, name, got, want, dtype, what) -> tuple[float, float]:
+    """The attention bars on a gradient (or any [..., D] result): allclose
+    at ATTN_TOL, and each row within ATTN_ROW_TOL of its norm floored at the
+    tensor's mean row norm, since a row can be zero in exact arithmetic
+    (causal query 0: p = 1 and dp = delta, so its dq is rounding noise);
+    a tensor whose mean row norm is under the elementwise bar is all noise
+    and held by that bar alone. Returns (max abs error, max row error)."""
+    tol, row_tol = ATTN_TOL[str(dtype)], ATTN_ROW_TOL[str(dtype)]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    check(torch.allclose(g, w, atol=tol, rtol=tol),
+          f"{name} != plain at {what}: max abs err {err}")
+    norm = w.norm(dim=-1)
+    mean = float(norm.mean())
+    rel = 0.0
+    if mean >= tol:
+        rel = float(((g - w).norm(dim=-1) / norm.clamp_min(mean)).max())
+        check(rel <= row_tol, f"{name} != plain at {what}: row-relative err {rel} > {row_tol}")
+    return err, rel
+
+
+def backward_bounds(torch, q, k, causal: bool) -> dict:
+    """Least ms of the forward with lse, of each backward kernel and of the
+    backward pass: each input read once and each output written once;
+    products of 2 D flops per (query row, key) pair and head (the causal
+    triangle only) on the tensor cores in bf16, the CUDA cores in float32.
+    The forward needs 2 products, dkdv 4 (S, dP, dV, dK), dq 3 (S, dP,
+    dQ), the pass 5 (2.5x the forward's); delta 2 D flops a row."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    esz = q.element_size()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    product = flash_flops(q, k, causal) // 2
+    rows = B * S * H
+    qo = esz * B * S * H * D   # one of q, o, do, dq
+    kv = esz * B * T * KV * D  # one of k, v, dk, dv
+    return {
+        "flash_attention_lse": _larger(2 * qo + 2 * kv + 4 * rows, 2 * product, rate),
+        "flash_bwd_delta": _larger(2 * qo + 4 * rows, 2 * rows * D, F32_OPS_PER_S),
+        "flash_bwd_dkdv": _larger(2 * qo + 4 * kv + 8 * rows, 4 * product, rate),
+        "flash_bwd_dq": _larger(3 * qo + 2 * kv + 8 * rows, 3 * product, rate),
+        "backward_pass": _larger(4 * qo + 4 * kv + 4 * rows, 5 * product, rate),
+    }
+
+
+def training_kernels(np, torch) -> dict:
+    """8a. The flash forward with lse and the three backward kernels against
+    their plain versions (on the same inputs: the kernel's lse and delta
+    feed both) at the training shapes, timed by CUDA events and alone in a
+    CUDA graph beside the plain versions, PyTorch's SDPA forward and
+    backward (the yardstick; the port never calls it) and the bounds.
+    Returns the kernel-table rows of the main shape (llama3.2-3b, bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("flash_attention_lse",) + BWD_KERNELS
+    rows, max_err = {}, {n: 0.0 for n in names}
+    shapes = [  # label, B, S, T, H, KV, D, causal, dtype
+        ("train", 4, TRAIN_SEQ, TRAIN_SEQ, 24, 8, 128, True, bf16),
+        ("train", 4, TRAIN_SEQ, TRAIN_SEQ, 24, 8, 128, True, f32),
+        ("phi3_D96", 4, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 96, True, bf16),
+        ("encoder_D64", 4, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, False, bf16),
+        ("ragged_S1000", 4, 1000, 1000, 24, 8, 128, True, bf16),
+    ]
+    for label, B, S, T, H, KV, D, causal, dt in shapes:
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        q, k, v, do = rn(B, S, H, D), rn(B, T, KV, D), rn(B, T, KV, D), rn(B, S, H, D)
+        what = f"{label} {(B, S, T, H, KV, D, causal, dt)}"
+        o, lse = attention.flash_attention(q, k, v, causal, return_lse=True)
+        o_ref, lse_ref = ref.ref_flash_attention(q, k, v, causal, return_lse=True)
+        check(torch.equal(o, attention.flash_attention(q, k, v, causal)),
+              f"the lse route changes the output at {what}")
+        e_o = check_attention(torch, "flash_attention_lse", o, o_ref, dt, what)
+        e_l = check_attention(torch, "flash_attention_lse (lse)", lse[..., None],
+                              lse_ref[..., None], dt, what)
+        delta = attention.flash_bwd_delta(o, do)
+        e_d = check_grad(torch, "flash_bwd_delta", delta[..., None],
+                         ref.ref_flash_bwd_delta(o, do)[..., None], dt, what)
+        dk, dv = attention.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+        dk_r, dv_r = ref.ref_flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+        e_k = check_grad(torch, "flash_bwd_dkdv (dk)", dk, dk_r, dt, what)
+        e_v = check_grad(torch, "flash_bwd_dkdv (dv)", dv, dv_r, dt, what)
+        e_q = check_grad(torch, "flash_bwd_dq", attention.flash_bwd_dq(
+            q, k, v, do, lse, delta, causal), ref.ref_flash_bwd_dq(q, k, v, do, lse, delta, causal),
+            dt, what)
+        errs = {"flash_attention_lse": (max(e_o[0], e_l[0]), max(e_o[1], e_l[1])),
+                "flash_bwd_delta": e_d,
+                "flash_bwd_dkdv": (max(e_k[0], e_v[0]), max(e_k[1], e_v[1])),
+                "flash_bwd_dq": e_q}
+        del o_ref, lse_ref, dk, dv, dk_r, dv_r
+        calls = {
+            "flash_attention_lse": (
+                lambda: attention.flash_attention(q, k, v, causal, return_lse=True),
+                lambda: ref.ref_flash_attention(q, k, v, causal, return_lse=True)),
+            "flash_bwd_delta": (lambda: attention.flash_bwd_delta(o, do),
+                                lambda: ref.ref_flash_bwd_delta(o, do)),
+            "flash_bwd_dkdv": (
+                lambda: attention.flash_bwd_dkdv(q, k, v, do, lse, delta, causal),
+                lambda: ref.ref_flash_bwd_dkdv(q, k, v, do, lse, delta, causal)),
+            "flash_bwd_dq": (
+                lambda: attention.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+                lambda: ref.ref_flash_bwd_dq(q, k, v, do, lse, delta, causal)),
+        }
+        # The yardstick: SDPA's forward (keeping what its backward needs) and
+        # its backward (delta, dq, dk, dv in one call).
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dos = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+        lib_fwd, lib_err = library_ms(torch, sdpa_fwd)
+        lib_fwd_dev = library_device_ms(torch, sdpa_fwd)
+        lib_bwd = lib_bwd_dev = None
+        if lib_fwd is not None:
+            out_s = sdpa_fwd()
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out_s, (qs, ks, vs), dos, retain_graph=True)
+
+            lib_bwd, lib_err = library_ms(torch, sdpa_bwd)
+            lib_bwd_dev = library_device_ms(torch, sdpa_bwd)
+        library = {"flash_attention_lse": (lib_fwd, lib_fwd_dev), "flash_bwd_delta": (None, None),
+                   "flash_bwd_dkdv": (lib_bwd, lib_bwd_dev), "flash_bwd_dq": (lib_bwd, lib_bwd_dev)}
+        bounds = backward_bounds(torch, q, k, causal)
+        device_sum = 0.0
+        for name, (kern, plain) in calls.items():
+            ms = cuda_ms(torch, kern)
+            dev = graph_ms(torch, kern)
+            device_sum += dev
+            plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+            b_ms, b_by = bounds[name]
+            max_err[name] = max(max_err[name], errs[name][0])
+            emit("train_kernel", kernel=name, shape=label, B=B, S=S, T=T, H=H, KV=KV, D=D,
+                 causal=causal, dtype=str(dt), max_abs_err=errs[name][0],
+                 max_row_rel_err=errs[name][1], ms=ms, device_ms=dev, plain_ms=plain_ms,
+                 library_ms=library[name][0], library_device_ms=library[name][1],
+                 library_error=lib_err, bound_ms=b_ms, bound_by=b_by,
+                 share_of_bound=b_ms / ms, device_share_of_bound=b_ms / dev,
+                 host_us_per_call=host_us(torch, kern, reps=20))
+            if label == "train" and dt == bf16:
+                rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=library[name][0],
+                                  bound_ms=b_ms, bound_by=b_by)
+        emit("train_attention_pass", shape=label, dtype=str(dt),
+             forward_and_backward_device_ms=device_sum,
+             sdpa_forward_and_backward_device_ms=(
+                 None if lib_fwd_dev is None or lib_bwd_dev is None else lib_fwd_dev + lib_bwd_dev),
+             backward_device_ms=device_sum - graph_ms(torch, calls["flash_attention_lse"][0]),
+             backward_bound_ms=bounds["backward_pass"][0], backward_bound_by=bounds["backward_pass"][1])
+        del q, k, v, do, o, lse, delta, qs, ks, vs, dos, calls
+        torch.cuda.empty_cache()
+    for name in rows:
+        rows[name]["max_abs_err"] = max_err[name]
+    return rows
+
+
+@contextlib.contextmanager
+def plain_attention(ops, ref):
+    """Within the block, the model's flash attention runs the plain PyTorch
+    versions on the card (``ops`` patched, restored on exit): 8c's arm."""
+    saved = ops.flash_attention, ops.flash_attention_bwd
+
+    def fwd(q, k, v, causal=True, block_q=128, block_kv=128, return_lse=False):
+        return ref.ref_flash_attention(q, k, v, causal, return_lse=return_lse)
+
+    ops.flash_attention, ops.flash_attention_bwd = fwd, ref.ref_flash_attention_bwd
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.flash_attention_bwd = saved
+
+
+def training_phases(np, torch) -> dict:
+    """8b. llama3.2-3b trained at its published widths for TRAIN_STEPS
+    steps through ``launch/train.py``'s ``train`` (the training main path:
+    every count set to 0 just before, read just after; returned), then one
+    more step profiled; 8c the train step with kernels against the same
+    step with the plain versions on the card, the widths cut to
+    TRAIN_CUT_LAYERS layers; 8d checkpoint restart on the smoke config."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import attention, ops, ref
+    from repro_torch.launch.train import batch_to, data_config, make_pipeline, train
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.runtime.steps import build_train_step, make_train_state
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+
+    # -- 8b. the training main path: every count to 0 just before -----------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+    for key in attention.launches:
+        attention.launches[key] = 0
+    res = train(TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, smoke=False,
+                device="cuda", log=log.append, opt_cfg=opt_cfg)
+    torch.cuda.synchronize()
+    launches = dict(attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    want = {key: 0 for key in launches}
+    want["flash_attention_lse"] = 2 * L * TRAIN_MICRO * TRAIN_STEPS  # forward + recompute
+    want.update({n: L * TRAIN_MICRO * TRAIN_STEPS for n in BWD_KERNELS})
+    check(launches == want, f"train launches {launches}, expected {want}")
+    losses = [m["loss"] for m in res.metrics]
+    gnorms = [m["grad_norm"] for m in res.metrics]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"train losses {losses}")
+    check(all(np.isfinite(gnorms)) and min(gnorms) > 0, f"train grad norms {gnorms}")
+    # Moved: each leaf against the same seed's init (the same draws on the card).
+    init = build_model(cfg).init(0, device="cuda")
+    moved = [float((a.detach() - b).abs().max()) for a, b in
+             zip(tree_leaves(res.state.params), tree_leaves(init))]
+    del init
+    check(min(moved) > 0, f"a parameter leaf did not move: {moved}")
+    n_params = sum(t.numel() for t in tree_leaves(res.state.params))
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    step_s = float(np.mean(res.step_s[1:]))  # the first step warms up
+    q = torch.empty((TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim), device="meta")
+    attn = 3.5 * L * flash_flops(q, q[:, :, :cfg.n_kv_heads], True)  # 2 + 5 products
+    dense = 6 * n_params * tok
+    adam_bytes = 28 * n_params  # read p, g, m, v; write p, m, v (float32)
+    bound_s = (dense + attn) / BF16_OPS_PER_S + adam_bytes / HBM_BYTES_PER_S
+    emit("train_full_width", arch=cfg.name, params=n_params, layers=L, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, n_micro=TRAIN_MICRO, steps=TRAIN_STEPS, step_s=res.step_s,
+         first_step_s=res.step_s[0], ms_per_step=1e3 * step_s, tokens_per_s=tok / step_s,
+         mfu=dense / step_s / BF16_OPS_PER_S, step_bound_ms=1e3 * bound_s,
+         step_bound_parts_ms=dict(dense=1e3 * dense / BF16_OPS_PER_S,
+                                  attention=1e3 * attn / BF16_OPS_PER_S,
+                                  adamw=1e3 * adam_bytes / HBM_BYTES_PER_S),
+         share_of_bound=bound_s / step_s, peak_gib=peak / 2**30, losses=losses,
+         grad_norms=gnorms, lrs=[m["lr"] for m in res.metrics],
+         min_leaf_max_move=min(moved), launches=launches, log=log)
+
+    # Where a step's device time goes: one more step under the profiler.
+    step_fn = build_train_step(build_model(cfg), opt_cfg, n_micro=TRAIN_MICRO)
+    batch = batch_to(make_pipeline(data_config(cfg, TRAIN_BATCH, TRAIN_SEQ))
+                     .batch_for_step(TRAIN_STEPS), "cuda")
+    state = res.state
+    del res
+
+    def one_step():
+        step_fn(state, batch)
+
+    profile_run("train_step", one_step, step_s)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # -- 8c. the step with kernels against the plain versions, same card -----
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    model = build_model(cut)
+    data = make_pipeline(data_config(cut, TRAIN_BATCH, TRAIN_SEQ))
+    batches = [batch_to(data.batch_for_step(i), "cuda") for i in range(TRAIN_CUT_STEPS)]
+    step = build_train_step(model, opt_cfg, n_micro=TRAIN_MICRO)
+    arms = {}
+    for arm in ("kernels", "plain"):
+        state = make_train_state(model, 0, device="cuda")
+        if arm == "kernels":
+            init = [t.detach().clone() for t in tree_leaves(state.params)]
+        else:
+            check(all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params), init)),
+                  "8c: the two arms start from different weights")
+        before = dict(attention.launches)
+        metrics = []
+        t = time.perf_counter()
+        with plain_attention(ops, ref) if arm == "plain" else contextlib.nullcontext():
+            for b in batches:
+                state, m = step(state, b)
+                metrics.append({k: float(x) for k, x in m.items()})
+        wall = time.perf_counter() - t
+        launched = {k: attention.launches[k] - before[k] for k in before}
+        check((launched["flash_bwd_dkdv"] > 0) == (arm == "kernels"), f"8c {arm} launched {launched}")
+        arms[arm] = (state, metrics, wall)
+    tol = max(0.05, 0.02 * cut.n_layers)  # tests/test_models.py:113
+    (sk, mk, wk), (sp, mp, wp) = arms["kernels"], arms["plain"]
+    for a, b in zip(mk, mp):
+        for key in ("loss", "grad_norm"):
+            check(abs(a[key] - b[key]) <= tol * (1 + abs(b[key])),
+                  f"8c: {key} kernels {a[key]} != plain {b[key]} (tol {tol})")
+    rel = []
+    for a, b, p0 in zip(tree_leaves(sk.params), tree_leaves(sp.params), init):
+        du, dv = a.detach() - p0, b.detach() - p0
+        rel.append(float((du - dv).norm() / dv.norm().clamp_min(1e-30)))
+    check(max(rel) <= UPDATE_REL_TOL, f"8c: a leaf's update differs by {max(rel)} (tol {UPDATE_REL_TOL})")
+    emit("train_card_equals_plain", arch=cut.name, layers=cut.n_layers,
+         cut=f"{cfg.n_layers} -> {cut.n_layers} layers, widths as published",
+         steps=TRAIN_CUT_STEPS, kernels=mk, plain=mp, tol=tol, update_rel_errs=rel,
+         update_rel_tol=UPDATE_REL_TOL, kernels_wall_s=wk, plain_wall_s=wp)
+    del arms, sk, sp, init, batches, state
+    torch.cuda.empty_cache()
+
+    # -- 8d. checkpoint restart on the smoke config ----------------------------
+    d = ROOT / "build" / "phase8_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(arch=TRAIN_ARCH, global_batch=4, seq=64, n_micro=2, smoke=True, device="cuda",
+              log=lambda *_: None)
+    whole = train(steps=4, **kw)
+    first = train(steps=3, ckpt_dir=str(d), ckpt_every=1, **kw)
+    smoke = smoke_config(TRAIN_ARCH)
+    like = make_train_state(build_model(smoke), 1, device="cuda")
+    restored, at = ckpt.restore(str(d), like)
+    saved = tree_leaves([first.state.params, first.state.opt, first.state.residual])
+    back = tree_leaves([restored.params, restored.opt, restored.residual])
+    check(at == 3 and len(saved) == len(back)
+          and all(a.dtype == b.dtype and torch.equal(a.detach().cpu(), b.detach().cpu())
+                  for a, b in zip(saved, back)), "8d: the restored state != the saved one")
+    resumed = train(steps=4, ckpt_dir=str(d), **kw)
+    b_res = make_pipeline(data_config(smoke, 4, 64)).batch_for_step(resumed.start)
+    b_whole = make_pipeline(data_config(smoke, 4, 64)).batch_for_step(3)
+    check(resumed.start == 3 and all(np.array_equal(b_res[k], b_whole[k]) for k in b_whole),
+          "8d: the resumed step's batch != the uninterrupted run's")
+    l_res, l_whole = resumed.metrics[0]["loss"], whole.metrics[3]["loss"]
+    check(abs(l_res - l_whole) <= 1e-3 * abs(l_whole), f"8d: resumed loss {l_res} != {l_whole}")
+    emit("train_checkpoint_restart", arch=smoke.name, saved_at=at, leaves=len(saved),
+         restored_equal=True, resumed_at=resumed.start, resumed_loss=l_res,
+         uninterrupted_loss=l_whole, loss_abs_diff=abs(l_res - l_whole))
+    shutil.rmtree(d, ignore_errors=True)
+    emit("train_phase", seconds=time.perf_counter() - t_phase, launches=launches)
+    return launches
 
 
 def production_scenario(np, torch, stream) -> None:
@@ -1334,6 +1731,12 @@ def main() -> int:
     for f in cpm_fns:
         check(f.get("spill_store_bytes", 0) == 0 and f.get("spill_load_bytes", 0) == 0,
               f"cpm.cu spills in {f['function']}")
+    bwd_fns = flash_bwd_ptxas(build.build_log(build.SOURCES["flash_attention_bwd"]))
+    emit("flash_bwd_ptxas", instantiations=bwd_fns)
+    check(len(bwd_fns) > 0, "no ptxas report for flash_attention_bwd.cu")
+    for f in bwd_fns:
+        check(f["spill_store_bytes"] == 0 and f["spill_load_bytes"] == 0,
+              f"flash_attention_bwd.cu spills in {f['kernel']}")
 
     # The offline fleet of phases 1 (stage-1 inputs) and 2.
     evs = production_arrivals(0, rate=1 / 60, n_jobs=16, n_racks=8, n_wireless=2)
@@ -1633,6 +2036,12 @@ def main() -> int:
 
     # -- 7. the expert, recurrent and cross-attention families ----------------
     family_phases(np, torch)
+
+    # -- 8. the training path: llama3.2-3b trained at full width --------------
+    table.update(training_kernels(np, torch))
+    train_launches = training_phases(np, torch)
+    for name in ("flash_attention_lse",) + BWD_KERNELS:
+        table[name]["launches"] = train_launches[name]
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],

@@ -15,6 +15,13 @@ package's trees as numpy arrays (``jax.tree.map(np.asarray, tree)`` on
 the caller's side) and return the port's, leaf by leaf;
 ``lm_tree_to_arrays`` goes back. bfloat16 leaves (numpy arrays of the
 ``bfloat16`` extension dtype) cross bit for bit.
+
+A training state crosses the same way: ``train_state_from_arrays`` takes
+the JAX package's ``TrainState`` as numpy arrays (params, the AdamW
+``opt`` m / v / step, the error-feedback residual or ``None``) and
+returns the port's :class:`~repro_torch.runtime.steps.TrainState`;
+``train_state_to_arrays`` gives back a dict of its three fields, from
+which the caller builds the JAX package's ``TrainState(**d)``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ __all__ = [
     "lm_params_from_arrays",
     "lm_cache_from_arrays",
     "lm_tree_to_arrays",
+    "train_state_from_arrays",
+    "train_state_to_arrays",
 ]
 
 
@@ -147,3 +156,39 @@ def lm_tree_to_arrays(tree):
         return np.asarray(t)
 
     return _map(tree, leaf)
+
+
+def _field(state, name: str):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def train_state_from_arrays(state, device=None):
+    """The port's ``TrainState`` from the JAX package's, given as numpy
+    arrays (``jax.tree.map(np.asarray, state)``, or a dict of the fields
+    ``params``, ``opt`` and ``residual``): params, m, v and the residual on
+    ``device`` (``None`` = the CUDA card) in their own types, the step an
+    int32 0-d CPU tensor, as ``adamw_init`` makes it."""
+    from repro_torch.runtime.steps import TrainState
+
+    dev = resolve_device(device)
+    opt = _field(state, "opt")
+    residual = _field(state, "residual")
+    to = lambda a: _leaf_to_tensor(a, dev, None)  # noqa: E731
+    return TrainState(
+        params=_map(_field(state, "params"), to),
+        opt={"m": _map(opt["m"], to), "v": _map(opt["v"], to),
+             "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32)},
+        residual=None if residual is None else _map(residual, to),
+    )
+
+
+def train_state_to_arrays(state) -> dict:
+    """{"params", "opt", "residual"} of a port ``TrainState`` as numpy
+    arrays (the step an int32 0-d array), the JAX package's field order."""
+    opt = state.opt
+    return {
+        "params": lm_tree_to_arrays(state.params),
+        "opt": {"m": lm_tree_to_arrays(opt["m"]), "v": lm_tree_to_arrays(opt["v"]),
+                "step": np.asarray(int(opt["step"]), dtype=np.int32)},
+        "residual": None if state.residual is None else lm_tree_to_arrays(state.residual),
+    }

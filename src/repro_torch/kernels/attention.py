@@ -1,5 +1,7 @@
-"""Flash (prefill) and decode attention: wrappers of the hand-written CUDA
-kernels in ``csrc/flash_attention.cu`` and ``csrc/decode_attention.cu``.
+"""Flash (prefill and training) and decode attention: wrappers of the
+hand-written CUDA kernels in ``csrc/flash_attention.cu`` (forward, with an
+optional log-sum-exp output), ``csrc/flash_attention_bwd.cu`` (backward)
+and ``csrc/decode_attention.cu``.
 
 A CUDA tensor goes to the kernel (built on first use by
 :mod:`repro_torch.kernels.build`) or raises; a CPU tensor goes to the
@@ -19,6 +21,10 @@ from repro_torch.kernels import ref
 
 __all__ = [
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_bwd_delta",
+    "flash_bwd_dkdv",
+    "flash_bwd_dq",
     "decode_attention",
     "decode_splits",
     "launches",
@@ -26,7 +32,10 @@ __all__ = [
 ]
 
 # Kernel launches per entry point (plain integers; the CPU route adds 0).
-launches = {"flash_attention": 0, "decode_attention": 0}
+# The flash forward counts under "flash_attention" on the serving route and
+# under "flash_attention_lse" when it also writes the log-sum-exp (training).
+launches = {"flash_attention": 0, "flash_attention_lse": 0, "decode_attention": 0,
+            "flash_bwd_delta": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 # Largest head_dim the kernels take (their tiles are sized for it).
 MAX_HEAD_DIM = 128
@@ -80,18 +89,8 @@ def _raise_if(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: cudaError {err}")
 
 
-def flash_attention(
-    q: torch.Tensor,  # [B, S, H, D]
-    k: torch.Tensor,  # [B, T, KV, D]
-    v: torch.Tensor,  # [B, T, KV, D]
-    causal: bool = True,
-    block_q: int = 128,
-    block_kv: int = 128,
-) -> torch.Tensor:
-    """GQA attention forward pass, [B, S, H, D] in q's type: query s
-    attends to keys t <= s when ``causal``. Any S and T. ``block_q`` and
-    ``block_kv`` are accepted for signature parity with the JAX package;
-    the CUDA kernel sizes its own tiles."""
+def _flash_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """(B, S, T, H, KV, D) of a flash call, after checking q, k, v."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, 4)
     _same(q, k, v)
@@ -101,21 +100,143 @@ def flash_attention(
         raise ValueError(f"k and v must be [B, T, KV, D] = {(B, T, KV, D)}")
     if min(B, S, T, H, KV, D) <= 0 or H % KV:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
+    return B, S, T, H, KV, D
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, T, KV, D]
+    v: torch.Tensor,  # [B, T, KV, D]
+    causal: bool = True,
+    block_q: int = 128,
+    block_kv: int = 128,
+    return_lse: bool = False,
+):
+    """GQA attention forward pass, [B, S, H, D] in q's type: query s
+    attends to keys t <= s when ``causal``. Any S and T. ``block_q`` and
+    ``block_kv`` are accepted for signature parity with the JAX package;
+    the CUDA kernel sizes its own tiles. With ``return_lse`` the result is
+    ``(out, lse)``, lse [B, S, H] float32 being each row's log-sum-exp of
+    the scaled scores (the backward pass's residual); without it the
+    kernel writes no lse."""
+    B, S, T, H, KV, D = _flash_shapes(q, k, v)
     if q.device.type == "cpu":
-        return ref.ref_flash_attention(q, k, v, causal)
+        return ref.ref_flash_attention(q, k, v, causal, return_lse=return_lse)
     from repro_torch.kernels.build import load
 
     _kernel_layout(16, q, k, v)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device) if return_lse else None
     err = load("flash_attention").flash_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), _strides(q, k, v, out), B, S, T, H, KV, D,
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        _strides(q, k, v, out), B, S, T, H, KV, D,
         int(bool(causal)), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_if(err, "flash_attention_fwd")
-    launches["flash_attention"] += 1
-    return out
+    launches["flash_attention_lse" if return_lse else "flash_attention"] += 1
+    return (out, lse) if return_lse else out
+
+
+def _bwd_inputs(q, k, v, do, lse, delta=None) -> tuple:
+    """(B, S, T, H, KV, D) after checking the backward kernels' inputs."""
+    B, S, T, H, KV, D = _flash_shapes(q, k, v)
+    _check("do", do, 4)
+    _same(q, do)
+    if tuple(do.shape) != (B, S, H, D):
+        raise ValueError(f"do must be [B, S, H, D] = {(B, S, H, D)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (tuple(t.shape) != (B, S, H) or t.dtype != torch.float32
+                              or t.device != q.device):
+            raise ValueError(f"{name} must be float32 [B, S, H] = {(B, S, H)} on {q.device}")
+    return B, S, T, H, KV, D
+
+
+def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta [B, S, H] float32 = rowsum(do * o), one warp a row on a card
+    (kernel (a) of ``csrc/flash_attention_bwd.cu``)."""
+    for name, t in (("o", o), ("do", do)):
+        _check(name, t, 4)
+    _same(o, do)
+    if o.shape != do.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} differ")
+    if o.device.type == "cpu":
+        return ref.ref_flash_bwd_delta(o, do)
+    from repro_torch.kernels.build import load
+
+    _kernel_layout(16, o, do)
+    B, S, H, D = o.shape
+    delta = torch.empty((B, S, H), dtype=torch.float32, device=o.device)
+    _raise_if(load("flash_attention_bwd").flash_bwd_delta(
+        _DTYPES[o.dtype], o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        _strides(o, o, o, o, do), B, S, H, D,
+        torch.cuda.current_stream(o.device).cuda_stream), "flash_bwd_delta")
+    launches["flash_bwd_delta"] += 1
+    return delta
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True):
+    """(dk, dv) [B, T, KV, D] in k's and v's types, the G query heads of
+    each kv head summed (kernel (b)); ``lse`` and ``delta`` are float32
+    [B, S, H]."""
+    B, S, T, H, KV, D = _bwd_inputs(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return ref.ref_flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    from repro_torch.kernels.build import load
+
+    _kernel_layout(16, q, k, v, do)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dk = torch.empty((B, T, KV, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, T, KV, D), dtype=v.dtype, device=q.device)
+    _raise_if(load("flash_attention_bwd").flash_bwd_dkdv(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, do, do), B, S, T, H, KV, D, int(bool(causal)),
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_bwd_dkdv")
+    launches["flash_bwd_dkdv"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
+    """dq [B, S, H, D] in q's type (kernel (c)); ``lse`` and ``delta`` are
+    float32 [B, S, H]."""
+    B, S, T, H, KV, D = _bwd_inputs(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return ref.ref_flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    from repro_torch.kernels.build import load
+
+    _kernel_layout(16, q, k, v, do)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    _raise_if(load("flash_attention_bwd").flash_bwd_dq(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, do),
+        B, S, T, H, KV, D, int(bool(causal)), 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_bwd_dq")
+    launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,    # [B, S, H, D]
+    k: torch.Tensor,    # [B, T, KV, D]
+    v: torch.Tensor,    # [B, T, KV, D]
+    o: torch.Tensor,    # [B, S, H, D]: the forward's output
+    lse: torch.Tensor,  # [B, S, H] float32: the forward's log-sum-exp
+    do: torch.Tensor,   # [B, S, H, D]: the output's gradient
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention`, each in its input's type,
+    dk and dv summed over the G query heads of each kv head: the three
+    backward kernels in turn (delta, dk and dv, dq), no atomics."""
+    B, S, T, H, KV, D = _bwd_inputs(q, k, v, do, lse)
+    if tuple(o.shape) != (B, S, H, D):
+        raise ValueError(f"o must be [B, S, H, D] = {(B, S, H, D)}")
+    delta = flash_bwd_delta(o, do)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    return flash_bwd_dq(q, k, v, do, lse, delta, causal), dk, dv
 
 
 # The decode kernel's split plan (csrc/decode_attention.cu, points 1-2).

@@ -54,13 +54,28 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "cpm_fleet_lb_masked": [*[_ptr] * 13, *[_i32] * 6, _ptr],
     },
     "flash_attention": {
-        # dtype, q, k, v, out, strides[12], B, S, T, H, KV, D, causal, scale, stream
+        # dtype, q, k, v, out, lse (or null), strides[12], B, S, T, H, KV, D,
+        # causal, scale, stream
         "flash_attention_fwd": [
-            _i32, _ptr, _ptr, _ptr, _ptr, _i64p,
+            _i32, _ptr, _ptr, _ptr, _ptr, _ptr, _i64p,
             _i32, _i32, _i32, _i32, _i32, _i32, _i32, _f32, _ptr,
         ],
         # dtype, D -> dynamic shared memory of one block in bytes
         "flash_attention_smem_bytes": [_i32, _i32],
+    },
+    "flash_attention_bwd": {
+        # dtype, o, do, delta, strides[15], B, S, H, D, stream
+        "flash_bwd_delta": [_i32, _ptr, _ptr, _ptr, _i64p, _i32, _i32, _i32, _i32, _ptr],
+        # dtype, q, k, v, do, lse, delta, dk, dv, strides[15], B, S, T, H, KV,
+        # D, causal, scale, stream
+        "flash_bwd_dkdv": [
+            _i32, *[_ptr] * 8, _i64p, *[_i32] * 7, _f32, _ptr,
+        ],
+        # dtype, q, k, v, do, lse, delta, dq, strides[15], B, S, T, H, KV, D,
+        # causal, scale, stream
+        "flash_bwd_dq": [
+            _i32, *[_ptr] * 7, _i64p, *[_i32] * 7, _f32, _ptr,
+        ],
     },
     "decode_attention": {
         # dtype, q, k, v, kv_len (or null), kv_len_all, out, part,

@@ -11,6 +11,12 @@
 // out = acc / max(l, 1e-30) cast to q's type. bfloat16 and float32 inputs;
 // D a multiple of 16, at most 128.
 //
+// For the training step the kernel can also write each folded row's
+// log-sum-exp, lse[b, s, h] = m + log(max(l, 1e-30)) in float32 with the
+// score scale applied (natural log, as models/flash.py:85-87 of the JAX
+// package), which the backward kernels (flash_attention_bwd.cu) read. The
+// pointer is null on the serving path, which then writes nothing more.
+//
 // Rows are folded as i = s * G + g within one kv head, so the G heads that
 // share a kv head share its K and V tiles (flash_attention.py folds them the
 // same way) and no G has to divide a tile. Keys t >= T and rows i >= S * G
@@ -97,6 +103,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, S, H] float32, or null
   int64_t q_sb, q_ss, q_sh;  // strides (elements) of q over b, s, h
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
@@ -320,6 +327,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
     const float l = fmaxf(sL[r], 1e-30f);
     float* dst = o + b * p.o_sb + s * p.o_ss + h * p.o_sh;
     for (int d = lane; d < D; d += 32) dst[d] = sO[r * lay.ldo + d] / l;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(static_cast<int64_t>(b) * p.S + s) * p.H + h] = sM[r] + logf(l);
   }
 }
 
@@ -952,6 +961,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
         inv[h] = 1.f / fmaxf(l[h], 1e-30f);
       }
+      if (p.lse != nullptr && c == 0) {
+        // m is in log2 units: lse = m * ln 2 + log(l), natural log.
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int fr = i0 + 16 * (warp % 4) + g4 + 8 * h;
+          if (fr < n_rows) {
+            const int s = fr / G;
+            p.lse[(static_cast<int64_t>(u.b) * p.S + s) * p.H + u.kvh * G + (fr - s * G)] =
+                m[h] * 0.6931471805599453f + logf(fmaxf(l[h], 1e-30f));
+          }
+        }
+      }
 #pragma unroll
       for (int i = 0; i < D / 2; i += 2) {
         const int h = (i >> 1) & 1;
@@ -1093,9 +1114,11 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (b, s, h)
 // of q, (b, t, kv) of k, of v, and (b, s, h) of out; the last dimension of
-// every tensor is contiguous. Returns the cudaError_t of the launch.
+// every tensor is contiguous. lse: a contiguous float32 [B, S, H] tensor
+// that receives each row's log-sum-exp, or null. Returns the cudaError_t of
+// the launch.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
-                                   const void* v, void* out,
+                                   const void* v, void* out, float* lse,
                                    const int64_t* strides, int B, int S, int T,
                                    int H, int KV, int D, int causal,
                                    float scale, void* stream) {
@@ -1107,6 +1130,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = out;
+  p.lse = lse;
   p.q_sb = strides[0];
   p.q_ss = strides[1];
   p.q_sh = strides[2];

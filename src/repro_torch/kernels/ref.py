@@ -16,6 +16,12 @@ scores, masked scores at -1e30, a full softmax, the output cast to q's
 type. The kernels reorder the sums (online softmax), so they agree with
 these within 2e-5 in float32 and 4e-2 in bfloat16.
 
+``ref_flash_attention(..., return_lse=True)`` also gives each row's
+log-sum-exp, and ``ref_flash_attention_bwd`` is the plain version of the
+three backward kernels (``csrc/flash_attention_bwd.cu``): the JAX
+package's ``_flash_bwd`` (``src/repro/models/flash.py:108``) with its
+rounding points, on unrepeated K and V.
+
 ``ref_decode_attention_split`` is a plain model of the decode kernel's
 split and combine, for the tests only.
 
@@ -38,6 +44,10 @@ __all__ = [
     "ref_fleet_lb",
     "ref_fleet_operands",
     "ref_flash_attention",
+    "ref_flash_attention_bwd",
+    "ref_flash_bwd_delta",
+    "ref_flash_bwd_dkdv",
+    "ref_flash_bwd_dq",
     "ref_decode_attention",
     "ref_decode_attention_split",
 ]
@@ -195,13 +205,9 @@ def ref_fleet_lb(
     return ref_combined_lb(w, p, extra, mask=mask, n_iters=n_iters)
 
 
-def ref_flash_attention(
-    q: torch.Tensor,  # [B, S, H, D]
-    k: torch.Tensor,  # [B, T, KV, D]
-    v: torch.Tensor,  # [B, T, KV, D]
-    causal: bool = True,
-) -> torch.Tensor:
-    """GQA attention, query s attending to keys t <= s when causal."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """float32 scores [B, S, KV, G, T] of the folded query heads, scaled,
+    with keys t > s at -1e30 when causal."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, D).to(torch.float32)
@@ -211,9 +217,90 @@ def ref_flash_attention(
             T, device=q.device
         )[None, :]
         s = torch.where(mask[None, :, None, None, :], s, s.new_tensor(NEG_INF))
+    return s
+
+
+def ref_flash_attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, T, KV, D]
+    v: torch.Tensor,  # [B, T, KV, D]
+    causal: bool = True,
+    return_lse: bool = False,
+):
+    """GQA attention, query s attending to keys t <= s when causal; with
+    ``return_lse`` also each row's log-sum-exp [B, S, H] in float32 (the
+    scaled scores' natural logsumexp, the forward residual of
+    ``models/flash.py:85-87`` of the JAX package)."""
+    B, S, H, D = q.shape
+    s = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bskgt,btkd->bskgd", p, v.to(torch.float32))
-    return o.reshape(B, S, H, D).to(q.dtype)
+    o = o.reshape(B, S, H, D).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, S, H)
+    return o
+
+
+def ref_flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta [B, S, H] float32 = rowsum(do * o) (``models/flash.py:119-122``)."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+
+
+def _bwd_scores(q, k, v, do, lse, delta, causal):
+    """(p, ds rounded to q's type, as float32), both [B, S, KV, G, T]: p =
+    exp(s - lse), ds = p * (do . v - delta) * scale."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    dog = do.reshape(B, S, KV, G, D).to(f32)
+    p = torch.exp(_scores(q, k, causal) - lse.reshape(B, S, KV, G)[..., None])
+    dp = torch.einsum("bskgd,btkd->bskgt", dog, v.to(f32))
+    ds = p * (dp - delta.reshape(B, S, KV, G)[..., None]) * (1.0 / math.sqrt(D))
+    return p, ds.to(q.dtype).to(f32)
+
+
+def ref_flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True):
+    """(dk, dv) [B, T, KV, D] in k's and v's types: p rounded to v's type
+    for dv, ds to q's type for dk, the G query heads of each kv head
+    summed."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    f32 = torch.float32
+    p, ds = _bwd_scores(q, k, v, do, lse, delta, causal)
+    dog = do.reshape(B, S, KV, H // KV, D).to(f32)
+    dv = torch.einsum("bskgt,bskgd->btkd", p.to(v.dtype).to(f32), dog)
+    dk = torch.einsum("bskgt,bskgd->btkd", ds, q.reshape(B, S, KV, H // KV, D).to(f32))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def ref_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
+    """dq [B, S, H, D] in q's type: ds rounded to q's type, times k."""
+    B, S, H, D = q.shape
+    _, ds = _bwd_scores(q, k, v, do, lse, delta, causal)
+    dq = torch.einsum("bskgt,btkd->bskgd", ds, k.to(torch.float32))
+    return dq.reshape(B, S, H, D).to(q.dtype)
+
+
+def ref_flash_attention_bwd(
+    q: torch.Tensor,    # [B, S, H, D]
+    k: torch.Tensor,    # [B, T, KV, D]
+    v: torch.Tensor,    # [B, T, KV, D]
+    o: torch.Tensor,    # [B, S, H, D] forward output
+    lse: torch.Tensor,  # [B, S, H] float32 forward log-sum-exp
+    do: torch.Tensor,   # [B, S, H, D] output gradient
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of GQA attention, as ``_flash_bwd`` of the JAX package
+    (``models/flash.py:108``) computes them: p = exp(s - lse), delta =
+    rowsum(do * o), ds = p * (do . v - delta) * scale in float32; p
+    rounded to v's type for dv, ds to q's type for dq and dk (its ``pv``
+    and ``dsv``); the G query heads of a kv head summed into its dk, dv;
+    each result in its input's type. The plain versions of the three
+    backward kernels in turn."""
+    delta = ref_flash_bwd_delta(o, do)
+    dk, dv = ref_flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    return ref_flash_bwd_dq(q, k, v, do, lse, delta, causal), dk, dv
 
 
 def ref_decode_attention(

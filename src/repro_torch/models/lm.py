@@ -1,12 +1,14 @@
 """Model builder for every architecture family (counterpart of
 ``repro.models.lm``).
 
-``build_model(cfg)`` returns a :class:`Model` with the serving functions:
+``build_model(cfg)`` returns a :class:`Model` with the training and
+serving functions:
 
   init(seed, device=None, dtype=fp32)              -> params
   encode(params, frames)                           -> memory (enc-dec only)
   hidden(params, tokens, memory=None)              -> (final hidden [B, S, d], aux)
   forward(params, tokens, memory=None)             -> (logits [B, S, V], aux)
+  loss(params, batch)                              -> scalar training loss
   prefill(params, tokens, memory=None)             -> last-position logits [B, 1, V]
   init_cache(batch, max_len, device, memory=None)  -> cache (decode state)
   decode_step(params, cache, token)                -> (logits [B, 1, V], cache)
@@ -22,9 +24,17 @@ each position of the layer-kind period stacked along a leading repeat
 axis, so that weights carry across leaf by leaf
 (:func:`repro_torch.interop.lm_params_from_arrays`). The JAX package's
 layer scan is a Python loop over the repeats here, with the whole period
-applied inside each repeat (the layer order of ``lm.py:463-476``). The
-training loss belongs to the training slice (ROADMAP Queue 1 item 7) and
-raises ``NotImplementedError``.
+applied inside each repeat (the layer order of ``lm.py:463-476``).
+
+With gradients on, the JAX package's ``jax.checkpoint``s become
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: one per
+period in ``hidden`` (``lm.py:362``), one per encoder layer (``:306``)
+and one per chunk of the loss (``:410``), so the backward pass keeps one
+period's input per repeat and recomputes the rest; values are the same
+with and without. ``hidden`` and ``encode`` take the repeats of every
+stacked leaf once per call with ``torch.unbind``, whose backward stacks
+their gradients once (selecting a repeat with ``tree[i]`` would add a
+zero tensor of the whole stacked shape per repeat in the backward pass).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
@@ -54,7 +65,9 @@ from repro_torch.models.layers import (
 
 Params = Any
 
-__all__ = ["Model", "build_model", "count_params", "active_param_fraction"]
+__all__ = ["Model", "build_model", "count_params", "active_param_fraction", "AUX_COEF"]
+
+AUX_COEF = 0.01  # weight of the MoE load-balance loss (lm.py:48)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +90,26 @@ def _take(tree: Any, i: int) -> Any:
     if isinstance(tree, tuple):
         return tuple(_take(v, i) for v in tree)
     return tree[i]
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """The ``n`` repeats of a stacked parameter tree, each leaf split once
+    with ``torch.unbind`` (views; one backward node per leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [_unstack(v, n) for v in tree]
+        return [tuple(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, dim=0))
+
+
+def _remat(fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward pass when gradients are on
+    (the JAX package's ``jax.checkpoint``); the same values either way."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _stack(trees: list) -> Any:
@@ -297,15 +330,18 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
         x = memory_in.to(compute_dtype)
         cos, sin = _rope(x.shape[1], x.device)
         enc = params["enc"]
-        for i in range(cfg.n_enc_layers):
-            lp = _take(enc["layers"], i)
+
+        def layer(x, lp):
             h = rms_norm(lp["mixer"]["norm"], x, eps)
             x = x + attention(
                 lp["mixer"]["attn"], h, cos, sin, cfg.n_heads, cfg.n_kv_heads,
                 cfg.head_dim, causal=False,
             )
             h2 = rms_norm(lp["ffn"]["norm"], x, eps)
-            x = x + mlp_swiglu(lp["ffn"]["mlp"], h2)
+            return x + mlp_swiglu(lp["ffn"]["mlp"], h2)
+
+        for lp in _unstack(enc["layers"], cfg.n_enc_layers):
+            x = _remat(layer, x, lp)
         return rms_norm(enc["norm"], x, eps)
 
     # ---------------- hidden trunk ----------------
@@ -324,15 +360,20 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
             mem = encode(params, memory)
         elif memory is not None:
             mem = memory.to(compute_dtype)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for rep in range(repeats):
+
+        def period_fn(x, lps):
             period_aux = None  # the period's sum, then the total (lm.py:355, :367)
-            for j, (mixer, ffn) in enumerate(pkinds):
-                lp = _take(params["layers"][j], rep)
+            for lp, (mixer, ffn) in zip(lps, pkinds):
                 x = _apply_mixer(lp["mixer"], cfg, mixer, x, cos, sin, mem)
                 x, a = _apply_ffn(lp["ffn"], cfg, ffn, x)
                 if a is not None:
                     period_aux = a if period_aux is None else period_aux + a
+            return x, period_aux
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        stacks = [_unstack(stacked, repeats) for stacked in params["layers"]]
+        for rep in range(repeats):
+            x, period_aux = _remat(period_fn, x, [st[rep] for st in stacks])
             if period_aux is not None:
                 aux = aux + period_aux
         return rms_norm(params["norm"], x, eps), aux
@@ -345,12 +386,37 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
         x, aux = hidden(params, tokens, memory)
         return unembed(out_table(params), x), aux
 
-    # ---------------- loss: the training slice ----------------
+    # ---------------- loss (vocab-safe chunked cross-entropy) -------------
     def loss(params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        raise NotImplementedError(
-            "the training loss belongs to the training slice of the port "
-            "(ROADMAP Queue 1 item 7)"
-        )
+        """Mean next-token cross-entropy over ``batch["labels"]`` (weighted
+        by the optional ``batch["mask"]``) plus ``AUX_COEF`` times the MoE
+        aux loss, as ``lm.py:390-426`` of the JAX package: the positions
+        are taken in chunks of the largest of 512, 256, ... 1 that divides
+        S, each chunk's float32 logits made (and, with gradients on,
+        remade in the backward pass) on their own, so that no [B, S, V]
+        logits tensor is ever held."""
+        x, aux = hidden(params, batch["tokens"], memory=batch.get("memory"))
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        tbl = out_table(params)["table"]
+        B, S, _ = x.shape
+        chunk = next(c for c in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1) if S % c == 0)
+
+        def chunk_ce(xc, lc, mc):
+            lg = (xc @ tbl.to(xc.dtype).T).to(torch.float32)
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, lc[..., None].long())[..., 0]
+            return torch.sum((logz - gold) * mc), torch.sum(mc)
+
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S, chunk):
+            sl = slice(c0, c0 + chunk)
+            mc = (mask[:, sl].to(torch.float32) if mask is not None
+                  else torch.ones((B, chunk), dtype=torch.float32, device=x.device))
+            s_c, n_c = _remat(chunk_ce, x[:, sl], labels[:, sl], mc)
+            tot, cnt = tot + s_c, cnt + n_c
+        return tot / torch.clamp(cnt, min=1.0) + AUX_COEF * aux
 
     # ---------------- prefill (serving: last-position logits) -------------
     def prefill(params: Params, tokens: torch.Tensor, memory: torch.Tensor | None = None):

@@ -90,13 +90,32 @@ def test_flash_plain_matches_jnp_flash_twin():
     _close(port_flash(qt, kt, vt, True), want, 2e-5)
 
 
-def test_port_flash_is_forward_only():
-    q = torch.zeros((1, 4, 2, 16), requires_grad=True)
-    k = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_flash(q, k, k)
+def test_port_flash_is_forward_only(monkeypatch):
+    """Forward only where no gradient is taken: with an input that requires
+    a gradient the port's flash has one (the autograd Function asks the
+    forward for the log-sum-exp it saves), while the serving call under
+    ``torch.no_grad()`` asks for none and returns the output alone.
+    (Before the training slice this test pinned the NotImplementedError of
+    a forward-only port.)"""
+    asked = []
+    real = tops.flash_attention
+
+    def spy(*args, **kw):
+        asked.append(kw.get("return_lse", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tops, "flash_attention", spy)
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 2, 16)).astype(np.float32)).requires_grad_()
+    k = torch.from_numpy(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
+    out = port_flash(q, k, k)
+    assert asked == [True] and out.requires_grad
+    out.sum().backward()
+    assert q.grad is not None and float(q.grad.abs().max()) > 0
     with torch.no_grad():
-        assert port_flash(q, k, k).shape == (1, 4, 2, 16)
+        served = port_flash(q, k, k)
+    assert asked == [True, False] and not served.requires_grad
+    assert torch.equal(served, out.detach())
 
 
 @pytest.mark.parametrize(

@@ -26,6 +26,9 @@ def test_import_loads_neither_jax_nor_reference_package():
         import repro_torch.runtime.steps, repro_torch.launch.serve
         import repro_torch.kernels.attention
         import repro_torch.distribution.plan
+        import repro_torch.models.flash, repro_torch.optim.adamw, repro_torch.optim.grad
+        import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt
+        import repro_torch.launch.train
         import repro_torch.obs.export, repro_torch.obs.report
         repro_torch.configs.get_config("llama3.2-3b")
         bad = sorted(
@@ -42,6 +45,21 @@ def test_import_loads_neither_jax_nor_reference_package():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference_package():
+    """No line of ``chip_smoke.py`` (which runs on the card machine) imports
+    JAX or the JAX package: every ``import`` and ``from`` in its syntax tree
+    names neither."""
+    import ast
+
+    tree = ast.parse((Path(SRC).parent / "chip_smoke.py").read_text())
+    names = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for alias in node.names]
+    names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+    assert "repro_torch.models.lm" in names  # the walk sees the script's imports
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
 
 
 def _instance():

@@ -233,14 +233,26 @@ def test_interop_round_trip_and_bf16_bits():
 
 
 def test_unported_kinds_raise_not_implemented():
-    """All ten architectures build; what is left unported, the training
-    loss, belongs to the training slice and raises."""
+    """All ten architectures build, and nothing of them is left unported:
+    the training loss, which raised NotImplementedError before the
+    training slice, returns a finite float32 scalar for every arch (its
+    parity with the JAX package is tests/test_torch_train.py's)."""
+    rng = np.random.default_rng(0)
     for arch in ARCH_IDS:
-        m = build_model(smoke_config(arch))
-        assert m.cfg == smoke_config(arch)
-        assert (m.encode is not None) == bool(m.cfg.n_enc_layers)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            m.loss({}, {"tokens": torch.zeros((1, 2), dtype=torch.int64)})
+        cfg = smoke_config(arch)
+        m = build_model(cfg)
+        assert m.cfg == cfg
+        assert (m.encode is not None) == bool(cfg.n_enc_layers)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+                 for k in ("tokens", "labels")}
+        if cfg.n_enc_layers or cfg.cross_attn_every:
+            T = 8 if cfg.n_enc_layers else 16
+            batch["memory"] = torch.from_numpy(
+                rng.standard_normal((2, T, cfg.d_model)).astype(np.float32))
+        with torch.no_grad():
+            loss = m.loss(m.init(0, device=CPU), batch)
+        assert loss.shape == () and loss.dtype == torch.float32
+        assert bool(torch.isfinite(loss))
 
 
 # --------------------------------------------------------------------------
