@@ -96,8 +96,11 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      against their plain versions at the training shapes (llama3.2-3b's
      heads at B 4, S = T 1,024, causal, bf16 and float32; D 96 causal; D
      64 non-causal, the encoder's; a ragged S of 1,000) at the attention
-     bars, and times each by CUDA events and alone in a CUDA graph beside
-     the plain version, SDPA's forward and backward and the bound; 8b
+     bars, checks that two calls of the dk/dv and dq kernels at the
+     training shape are equal (no atomics), and times each by CUDA events
+     and alone in a CUDA graph beside the plain version, SDPA's forward
+     and backward and the bound, with its TFLOP/s, and the forward with
+     lse beside the serving forward at the serving prefill shape; 8b
      trains llama3.2-3b at its published widths (f32 master weights from
      seed 0, bf16 compute, global batch 8 x 1,024 tokens from the port's
      pipeline in 2 micro-batches, AdamW(warmup 2, total 4), 4 steps)
@@ -509,21 +512,28 @@ def flash_ptxas(log: str, lib) -> list[dict]:
     return sorted(out, key=lambda r: r["D"])
 
 
-def flash_bwd_ptxas(log: str) -> list[dict]:
-    """Registers and spills of each backward instantiation (kernel, dtype,
-    D), from nvcc's ``-Xptxas -v`` report."""
+def flash_bwd_ptxas(log: str, lib) -> list[dict]:
+    """Registers, spills and dynamic shared memory of each backward
+    instantiation (kernel, dtype, D), from nvcc's ``-Xptxas -v`` report
+    and the library's own size query. A bf16 body runs setmaxnreg, so its
+    count is the one at entry (168; the consumers then take 224, the
+    producer 56)."""
     out, cur = [], None
+    kinds = {"flash_bwd_dkdv": 1, "flash_bwd_dq": 2}
     for line in log.splitlines():
         if "Function properties for" in line:
             m = re.search(r"(flash_bwd_\w+?)(?:ILi(\d+)E|I(f|13__nv_bfloat16)E)", line)
             cur = None if m is None else dict(
                 kernel=m.group(1), D=int(m.group(2) or 0),
-                dtype={"f": "f32", None: ""}.get(m.group(3), "bf16"))
+                dtype="f32" if m.group(3) == "f" or m.group(1).endswith("_f32") else "bf16")
         elif cur is not None and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
         elif cur is not None and "Used" in line:
             cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            kind = next((v for k, v in kinds.items() if cur["kernel"].startswith(k)), 0)
+            cur["dynamic_smem_bytes"] = (
+                lib.flash_bwd_smem_bytes(kind, int(cur["dtype"] == "bf16"), cur["D"]) if kind else 0)
             out.append(cur)
             cur = None
     return sorted(out, key=lambda r: (r["kernel"], r["dtype"], r["D"]))
@@ -549,11 +559,13 @@ def decode_bound(torch, q, k, lens: list[int]) -> tuple[float, str]:
 
 
 def library_device_ms(torch, fn):
-    """``graph_ms`` of a PyTorch yardstick call, or None when this build of
-    PyTorch refuses it (as :func:`library_ms`)."""
+    """``graph_ms`` of a PyTorch yardstick call, or None, with the reason
+    emitted, when this build of PyTorch refuses it (as :func:`library_ms`;
+    SDPA's backward refuses a CUDA graph at the training shape)."""
     try:
         return graph_ms(torch, fn)
-    except RuntimeError:
+    except RuntimeError as e:
+        emit("library_capture_refused", reason=str(e).splitlines()[0][:200])
         return None
 
 
@@ -1233,27 +1245,38 @@ def check_grad(torch, name, got, want, dtype, what) -> tuple[float, float]:
     return err, rel
 
 
+def backward_flops(q, k, causal: bool) -> dict:
+    """Operations of the forward with lse, of each backward kernel and of
+    the backward pass: products of 2 D flops per (query row, key) pair and
+    head (the causal triangle only); the forward needs 2 products, dkdv 4
+    (S, dP, dV, dK), dq 3 (S, dP, dQ), the pass 5 (2.5x the forward's);
+    delta 2 D flops a row."""
+    B, S, H, D = q.shape
+    product = flash_flops(q, k, causal) // 2
+    return {"flash_attention_lse": 2 * product, "flash_bwd_delta": 2 * B * S * H * D,
+            "flash_bwd_dkdv": 4 * product, "flash_bwd_dq": 3 * product,
+            "backward_pass": 5 * product}
+
+
 def backward_bounds(torch, q, k, causal: bool) -> dict:
     """Least ms of the forward with lse, of each backward kernel and of the
-    backward pass: each input read once and each output written once;
-    products of 2 D flops per (query row, key) pair and head (the causal
-    triangle only) on the tensor cores in bf16, the CUDA cores in float32.
-    The forward needs 2 products, dkdv 4 (S, dP, dV, dK), dq 3 (S, dP,
-    dQ), the pass 5 (2.5x the forward's); delta 2 D flops a row."""
+    backward pass: each input read once and each output written once, the
+    operations of :func:`backward_flops` on the tensor cores in bf16, the
+    CUDA cores in float32 (delta always on the CUDA cores)."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     esz = q.element_size()
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    product = flash_flops(q, k, causal) // 2
+    ops = backward_flops(q, k, causal)
     rows = B * S * H
     qo = esz * B * S * H * D   # one of q, o, do, dq
     kv = esz * B * T * KV * D  # one of k, v, dk, dv
     return {
-        "flash_attention_lse": _larger(2 * qo + 2 * kv + 4 * rows, 2 * product, rate),
-        "flash_bwd_delta": _larger(2 * qo + 4 * rows, 2 * rows * D, F32_OPS_PER_S),
-        "flash_bwd_dkdv": _larger(2 * qo + 4 * kv + 8 * rows, 4 * product, rate),
-        "flash_bwd_dq": _larger(3 * qo + 2 * kv + 8 * rows, 3 * product, rate),
-        "backward_pass": _larger(4 * qo + 4 * kv + 4 * rows, 5 * product, rate),
+        "flash_attention_lse": _larger(2 * qo + 2 * kv + 4 * rows, ops["flash_attention_lse"], rate),
+        "flash_bwd_delta": _larger(2 * qo + 4 * rows, ops["flash_bwd_delta"], F32_OPS_PER_S),
+        "flash_bwd_dkdv": _larger(2 * qo + 4 * kv + 8 * rows, ops["flash_bwd_dkdv"], rate),
+        "flash_bwd_dq": _larger(3 * qo + 2 * kv + 8 * rows, ops["flash_bwd_dq"], rate),
+        "backward_pass": _larger(4 * qo + 4 * kv + 4 * rows, ops["backward_pass"], rate),
     }
 
 
@@ -1299,14 +1322,23 @@ def training_kernels(np, torch) -> dict:
         dk_r, dv_r = ref.ref_flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
         e_k = check_grad(torch, "flash_bwd_dkdv (dk)", dk, dk_r, dt, what)
         e_v = check_grad(torch, "flash_bwd_dkdv (dv)", dv, dv_r, dt, what)
-        e_q = check_grad(torch, "flash_bwd_dq", attention.flash_bwd_dq(
-            q, k, v, do, lse, delta, causal), ref.ref_flash_bwd_dq(q, k, v, do, lse, delta, causal),
-            dt, what)
+        dq = attention.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        e_q = check_grad(torch, "flash_bwd_dq", dq,
+                         ref.ref_flash_bwd_dq(q, k, v, do, lse, delta, causal), dt, what)
         errs = {"flash_attention_lse": (max(e_o[0], e_l[0]), max(e_o[1], e_l[1])),
                 "flash_bwd_delta": e_d,
                 "flash_bwd_dkdv": (max(e_k[0], e_v[0]), max(e_k[1], e_v[1])),
                 "flash_bwd_dq": e_q}
-        del o_ref, lse_ref, dk, dv, dk_r, dv_r
+        if label == "train" and dt == bf16:
+            # No atomics: a second call gives the same bits.
+            dk2, dv2 = attention.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+            check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                  f"flash_bwd_dkdv differs between two calls at {what}")
+            check(torch.equal(dq, attention.flash_bwd_dq(q, k, v, do, lse, delta, causal)),
+                  f"flash_bwd_dq differs between two calls at {what}")
+            emit("train_kernel_determinism", shape=label, dkdv_equal=True, dq_equal=True)
+            del dk2, dv2
+        del o_ref, lse_ref, dk, dv, dk_r, dv_r, dq
         calls = {
             "flash_attention_lse": (
                 lambda: attention.flash_attention(q, k, v, causal, return_lse=True),
@@ -1342,6 +1374,7 @@ def training_kernels(np, torch) -> dict:
         library = {"flash_attention_lse": (lib_fwd, lib_fwd_dev), "flash_bwd_delta": (None, None),
                    "flash_bwd_dkdv": (lib_bwd, lib_bwd_dev), "flash_bwd_dq": (lib_bwd, lib_bwd_dev)}
         bounds = backward_bounds(torch, q, k, causal)
+        flops = backward_flops(q, k, causal)
         device_sum = 0.0
         for name, (kern, plain) in calls.items():
             ms = cuda_ms(torch, kern)
@@ -1356,6 +1389,7 @@ def training_kernels(np, torch) -> dict:
                  library_ms=library[name][0], library_device_ms=library[name][1],
                  library_error=lib_err, bound_ms=b_ms, bound_by=b_by,
                  share_of_bound=b_ms / ms, device_share_of_bound=b_ms / dev,
+                 device_tflops=flops[name] / dev / 1e9,
                  host_us_per_call=host_us(torch, kern, reps=20))
             if label == "train" and dt == bf16:
                 rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=library[name][0],
@@ -1368,6 +1402,15 @@ def training_kernels(np, torch) -> dict:
              backward_bound_ms=bounds["backward_pass"][0], backward_bound_by=bounds["backward_pass"][1])
         del q, k, v, do, o, lse, delta, qs, ks, vs, dos, calls
         torch.cuda.empty_cache()
+    # The lse route beside the serving forward at the serving prefill shape
+    # (llama3.2-3b: B 4, S = T 512, causal): device ms of each, one call.
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(bf16)
+               for shape in ((4, 512, 24, 128), (4, 512, 8, 128), (4, 512, 8, 128)))
+    emit("lse_vs_serving_forward", B=4, S=512, T=512, H=24, KV=8, D=128,
+         serving_device_ms=graph_ms(torch, lambda: attention.flash_attention(q, k, v, True)),
+         lse_device_ms=graph_ms(
+             torch, lambda: attention.flash_attention(q, k, v, True, return_lse=True)))
+    del q, k, v
     for name in rows:
         rows[name]["max_abs_err"] = max_err[name]
     return rows
@@ -1731,7 +1774,8 @@ def main() -> int:
     for f in cpm_fns:
         check(f.get("spill_store_bytes", 0) == 0 and f.get("spill_load_bytes", 0) == 0,
               f"cpm.cu spills in {f['function']}")
-    bwd_fns = flash_bwd_ptxas(build.build_log(build.SOURCES["flash_attention_bwd"]))
+    bwd_fns = flash_bwd_ptxas(build.build_log(build.SOURCES["flash_attention_bwd"]),
+                              build.load("flash_attention_bwd"))
     emit("flash_bwd_ptxas", instantiations=bwd_fns)
     check(len(bwd_fns) > 0, "no ptxas report for flash_attention_bwd.cu")
     for f in bwd_fns:

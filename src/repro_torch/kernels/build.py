@@ -4,7 +4,8 @@ bound with ctypes).
 Each source under ``csrc/`` becomes its own library. ``load(name)``
 compiles ``csrc/<name>.cu`` for ``sm_90a`` at first use into
 ``build/repro_torch/`` under the checkout root, keyed on a hash of the
-source so an edit rebuilds it, and returns the loaded library with its
+source and of the shared headers (``csrc/*.cuh``) so an edit of either
+rebuilds it, and returns the loaded library with its
 argument types set. ``build_all()`` starts one ``nvcc`` per source at
 once and waits for all of them. Nothing is built at import time: this
 module is imported on machines without ``nvcc``.
@@ -76,6 +77,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_bwd_dq": [
             _i32, *[_ptr] * 7, _i64p, *[_i32] * 7, _f32, _ptr,
         ],
+        # kernel (1 = dkdv, 2 = dq), dtype, D -> dynamic shared memory of
+        # one block in bytes
+        "flash_bwd_smem_bytes": [_i32, _i32, _i32],
     },
     "decode_attention": {
         # dtype, q, k, v, kv_len (or null), kv_len_all, out, part,
@@ -110,7 +114,10 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 

@@ -86,12 +86,7 @@
 // of 4 warps per 64 folded rows; each warp owns 16 rows from scores to
 // output, with the output accumulator in shared memory (151 KB at D = 128).
 
-#include <cuda.h>  // CUtensorMap and its enums only: no driver call is linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "sm90.cuh"
 
 namespace {
 
@@ -353,6 +348,8 @@ int launch(const Params& p, cudaStream_t stream) {
 
 namespace tc {
 
+using namespace sm90;
+
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 // Two consumer warpgroups per block (each owns 64 folded rows), and a
@@ -372,21 +369,13 @@ constexpr int kConsumerRegs = 240;
 static_assert(65536 / kThreads / 8 * 8 * kThreads >=
                   128 * kProducerRegs + 128 * kConsumers * kConsumerRegs,
               "setmaxnreg targets exceed the registers of one block an SM");
-constexpr long long kWatchdogCycles = 4000000000LL;  // ~2 s at 1.98 GHz
 
 // Tile geometry for head size D. A K or V tile is kBoxes boxes of
 // [kBK rows x kW columns], one TMA box each, every row 2 * kW bytes wide
-// with the matching swizzle; Q is the same with 64 rows.
+// with the matching swizzle (Swizzle<D>); Q is the same with 64 rows.
 template <int D>
-struct Cfg {
-  static_assert(D % 16 == 0 && D <= kMaxD, "D must be a multiple of 16, <= 128");
-  static constexpr int kW = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
-  static constexpr int kBoxes = D / kW;
-  static constexpr uint64_t kLayout = kW == 64 ? 1 : (kW == 32 ? 2 : 3);  // wgmma swizzle
-  static constexpr CUtensorMapSwizzle kSwizzle =
-      kW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-               : (kW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
-  static constexpr uint32_t kSwzMask = (2 * kW / 16 - 1) << 4;
+struct Cfg : Swizzle<D> {
+  static constexpr int kW = Swizzle<D>::kW;
   static constexpr uint32_t kQBox = 64 * 2 * kW;   // bytes of one Q box
   static constexpr uint32_t kKVBox = kBK * 2 * kW; // bytes of one K or V box
   static constexpr uint32_t kTile = kBK * D * 2;   // bytes of one K or V tile
@@ -401,61 +390,6 @@ struct Cfg {
   static constexpr uint32_t kBytes = kBar + 4 * kStages * 8 + 1024;  // + alignment
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed; trap (a launch
-// error instead of a hung card) if it has not after kWatchdogCycles.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > kWatchdogCycles) __trap();
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // 16-byte asynchronous copy to shared memory; src_bytes = 0 writes zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            uint32_t src_bytes) {
@@ -465,225 +399,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo) << 16) | (static_cast<uint64_t>(sbo) << 32) |
-         (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>  // wait until at most N committed groups are still running
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from touching accumulator registers across the
-// asynchronous wgmma (they are valid only after wgmma_wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma wrappers, m64 nN k16 with a float32 accumulator d. ss (N = kBK):
-// A and B from shared memory, both K-major; scale_d = 0 overwrites d. rs: A (four
-// registers of bfloat16 pairs) from registers, B from shared memory through
-// the transpose flag (N-major); always accumulates.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[24], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[56], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55"
-      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // Online softmax of one score tile in registers. sc holds the raw dot
@@ -725,28 +440,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBK / 2], float (&m)[
     sc[i] = ex2(fmaf(sc[i], c2, neg[(i >> 1) & 1]));
     l[(i >> 1) & 1] += sc[i];  // the unrounded p, as the Pallas body sums it
   }
-}
-
-// p as bfloat16 A fragments of the P.V product: the m64 k16 fragment of
-// keys 16 kk..16 kk + 15 is sc[8 kk..8 kk + 7] in pairs.
-__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
-                                       uint32_t (&pa)[kBK / 16][4]) {
-#pragma unroll
-  for (int i = 0; i < kBK / 2; i += 2)
-    pa[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
-}
-
-// One unit of work: a tile of kRows folded rows of one kv head and batch
-// row. Units are numbered longest first: unit w takes the (w / (KV * B))-th
-// row tile from the end (with causal masking the longest). A block takes
-// one unit a round, walking that order forward in even rounds and back in
-// odd ones, so that the longest units pair with the shortest; returns -1
-// when the block has no unit in round i.
-__device__ __forceinline__ int unit_index(int i, int n_units) {
-  const int P = gridDim.x;
-  const int x = blockIdx.x;
-  const int w = i * P + ((i & 1) ? P - 1 - x : x);
-  return w < n_units ? w : -1;
 }
 
 struct Unit {
@@ -856,7 +549,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           src = q + u.b * p.q_sb + s * p.q_ss + h * p.q_sh + col;
         }
         uint32_t off = (col / C::kW) * C::kQBox + r * 2 * C::kW + (col % C::kW) * 2;
-        off ^= (off >> 3) & C::kSwzMask;
+        off ^= (off >> 3) & C::kMask;
         cp_async16(sq + off, src, fr < n_rows ? 16 : 0);
       }
     };
@@ -919,7 +612,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           float alpha[2];
           online_softmax(sc, m, l, alpha, edge, t0, p.T, p.causal, srow, c, c2);
           uint32_t pa[kBK / 16][4];
-          pack_p(sc, pa);
+          pack_a<kBK>(sc, pa);
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
           mbar_wait(full_v(st), ph);
@@ -998,60 +691,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up once in the driver the runtime loaded.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// Rank-4 map over a [B, T, KV, D] bfloat16 tensor with element strides
-// (sb, st, sh), box (w, 1, kBK, 1).
-bool encode_kv(CUtensorMap* map, const void* ptr, int64_t sb, int64_t st,
-               int64_t sh, const Params& p, int w, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.D),
-                              static_cast<cuuint64_t>(p.KV),
-                              static_cast<cuuint64_t>(p.T),
-                              static_cast<cuuint64_t>(p.B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), 1,
-                             static_cast<cuuint32_t>(kBK), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Streaming multiprocessors of the current device (looked up once a device).
-int sm_count() {
-  static int count[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (count[dev] == 0 &&
-      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return count[dev];
-}
-
 template <int D>
 int launch_d(const Params& p, cudaStream_t stream) {
   using C = Cfg<D>;
@@ -1073,8 +712,11 @@ int launch_d(const Params& p, cudaStream_t stream) {
   }();
   if (ready != 0) return ready;
   CUtensorMap tm_k, tm_v;
-  if (!encode_kv(&tm_k, p.k, p.k_sb, p.k_st, p.k_sh, p, C::kW, C::kSwizzle) ||
-      !encode_kv(&tm_v, p.v, p.v_sb, p.v_st, p.v_sh, p, C::kW, C::kSwizzle))
+  // Rank-4 maps over [B, T, KV, D] with the tensors' strides, box (w, 1, kBK).
+  if (!encode_4d(&tm_k, p.k, D, p.KV, p.T, p.B, p.k_sh, p.k_st, p.k_sb, C::kW, 1, kBK,
+                 C::kMode) ||
+      !encode_4d(&tm_v, p.v, D, p.KV, p.T, p.B, p.v_sh, p.v_st, p.v_sb, C::kW, 1, kBK,
+                 C::kMode))
     return static_cast<int>(cudaErrorInvalidValue);
   // Persistent blocks, one an SM, each taking a unit a round.
   const int G = p.H / p.KV;
@@ -1085,27 +727,10 @@ int launch_d(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// f(std::integral_constant<int, D>{}) for the head sizes the kernel takes.
-template <typename F>
-int with_d(int D, F f) {
-  switch (D) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 48: return f(std::integral_constant<int, 48>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 80: return f(std::integral_constant<int, 80>{});
-    case 96: return f(std::integral_constant<int, 96>{});
-    case 112: return f(std::integral_constant<int, 112>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return -1;
-  }
-}
-
 int launch(const Params& p, cudaStream_t stream) {
-  const int err = with_d(p.D, [&](auto d) {
+  return with_d(p.D, static_cast<int>(cudaErrorInvalidValue), [&](auto d) {
     return launch_d<decltype(d)::value>(p, stream);
   });
-  return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
 }
 
 }  // namespace tc
@@ -1162,7 +787,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
 extern "C" int flash_attention_smem_bytes(int dtype, int D) {
   if (D <= 0 || D % 16 != 0 || D > kMaxD) return -1;
   if (dtype == 0) return static_cast<int>(f32::Layout(D).bytes);
-  return tc::with_d(D, [](auto d) {
+  return sm90::with_d(D, -1, [](auto d) {
     constexpr int kD = decltype(d)::value;
     return static_cast<int>(tc::Cfg<kD>::kBytes);
   });

@@ -23,29 +23,63 @@
 // passes K and V unrepeated). Three kernels, no atomics, so every result is
 // the same from run to run:
 //   (a) flash_bwd_delta: one warp per (b, s, h) row.
-//   (b) flash_bwd_dkdv: one block per (batch, kv head, key tile); it walks
-//       the folded query rows that can see the tile (causal: s >= the tile's
-//       first key) and writes dk and dv once.
-//   (c) flash_bwd_dq: one block per (batch, kv head, folded row tile); it
-//       walks the key tiles up to the tile's last query and writes dq once.
-// Any S and T: rows i >= S * G and keys t >= T are masked by index.
+//   (b) flash_bwd_dkdv: per (batch, kv head, key tile), it walks the folded
+//       query rows that can see the tile (causal: s >= the tile's first key)
+//       and writes dk and dv once.
+//   (c) flash_bwd_dq: per (batch, kv head, folded row tile), it walks the
+//       key tiles up to the tile's last query and writes dq once.
+// A tile is a block of its own in the float32 bodies and a unit of a
+// persistent block in the bfloat16 ones. Any S and T: rows past S * G and
+// keys past T add nothing (masked by index, or zero-filled and not written).
 //
 // What bounds it. (b) and (c) recompute s and dp, so the pass runs 7
 // products of the forward's size where the forward runs 2; the bound
 // counts the backward's operations as 2.5x the forward's (5 products) and
 // the bytes of q, k, v, o, do, lse read once and dq, dk, dv written once.
 // At llama3.2-3b's training shape (B 4, S = T 1,024, H 24, KV 8, D 128,
-// causal) that is operations. This first version is simple: the bf16 body
-// runs mma.sync m16n8k16 (bf16 in, float32 accumulate) from padded shared
-// tiles read by ldmatrix, with plain synchronous tile loads; a wgmma / TMA
-// redesign is later work. The float32 body (the tests' type, held at 2e-5)
-// runs float32 FMAs on the CUDA cores.
+// causal) that is operations: the products have to run on the tensor cores
+// at their full rate while the tiles stream in behind them.
+//
+// bfloat16 bodies, laid out as the forward (flash_attention.cu):
+//   * Block: two consumer warpgroups and one producer warp, in a warpgroup
+//     of its own whose other warps only give up their registers (setmaxnreg:
+//     56 a producer thread, 224 a consumer thread). Persistent blocks, one
+//     an SM, take units numbered longest first, walking that order forward
+//     and back in turns (sm90::unit_index), so no long unit forms the tail.
+//   * Row tiles. A tile is kRows = 64 folded rows: pos positions x gb heads
+//     of one kv head (gb = G for every G <= 64, pos = 64 / gb). Over
+//     [B, S, H, D] a rank-4 TMA box (w, gb, pos, 1) at (0, kv * G, s0, b)
+//     lands exactly those folded rows, in order, for any G; a tile fills
+//     gb * pos rows (63 for G = 3) and positions >= S are zero-filled.
+//   * (b) dk, dv: a unit is 128 keys of one (batch row, kv head), 64 a
+//     consumer; its K and V are loaded once by TMA. Row tiles of Q and dO
+//     stream through a ring of three stages by TMA, their rows' lse and delta
+//     beside them (cp.async by the producer warp, arriving on the same full
+//     barrier); each stage has a full and an empty mbarrier. A step:
+//     S^T = K Q^T and dP^T = V dO^T as wgmma m64n64k16 with both operands in
+//     shared memory; p and ds in registers in log2 units; dV += P^T dO and
+//     dK += dS^T Q as wgmma with P^T and dS^T the register A operand and dO,
+//     Q the shared B operand read through the transpose flag. dK and dV (64
+//     x D each a consumer) stay in registers over the whole walk and are
+//     written once, staged through shared memory for 16-byte stores. A
+//     consumer skips the steps whose rows all come before its keys, and masks
+//     only steps that cross the diagonal. Rows past a tile's fill are zeroed
+//     once; keys >= T are zero-filled and never written.
+//   * (c) dq: a unit is one row tile a consumer (2 pos positions); its Q and
+//     dO are loaded once by TMA, and K and V tiles of 64 keys stream through
+//     a ring as in the forward (three or four stages by D; a full and an
+//     empty barrier for each of K and V, V handed back as soon as dP is
+//     computed). S = Q K^T and dP = dO V^T
+//     (both operands in shared memory), ds in registers, dQ += dS K with dS
+//     the register A operand and K read transposed; dq is written once.
+//     Masks only on tiles that cross T or the diagonal.
+// No atomics, and each block sums its rows and keys in one fixed order, so
+// every result is the same from run to run. A wait on a barrier that never
+// completes traps after about two seconds instead of hanging the card. The
+// float32 bodies (the tests' type, held at 2e-5, which TF32 would miss) run
+// float32 FMAs on the CUDA cores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "sm90.cuh"
 
 namespace {
 
@@ -72,6 +106,7 @@ struct Params {
   int B, S, T, H, KV, D;
   int causal;
   float scale;
+  int gb, pos;  // bf16 bodies: a row tile's heads and positions (tc::set_row_tile)
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -337,363 +372,684 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(const Params p) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16 bodies: mma.sync m16n8k16 on the tensor cores
+// bfloat16 bodies: wgmma, TMA rings, persistent blocks
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;  // 4 warps, 16 accumulator rows each
-constexpr int kRows = 64;      // accumulator rows of a block (keys in (b), rows in (c))
-constexpr int kStep = 32;      // (b): folded rows per step; (c) takes 64 keys a step
 
-// Shared tiles of bf16 rows padded by 16 bytes: 8 rows read by one ldmatrix
-// fall in 8 different 16-byte bank groups.
+// Two consumer warpgroups a block and a producer warpgroup of which one warp
+// issues the loads: ptxas sizes a kernel that uses setmaxnreg in whole
+// warpgroups, and the three idle warps hand their registers over.
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * kConsumers + 128;
+// setmaxnreg targets: a block of 384 threads gets 168 registers a thread at
+// launch; 56 go to the producer warpgroup (the dkdv producer spilled at 24,
+// 32 and 40) and 224 to the consumers, which hold dK and dV.
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+static_assert(65536 / kThreads / 8 * 8 * kThreads >=
+                  128 * kProducerRegs + 128 * kConsumers * kConsumerRegs,
+              "setmaxnreg targets exceed the registers of one block an SM");
+constexpr int kRows = 64;                   // folded rows of a row tile (2 a producer lane)
+constexpr int kUnitKeys = 64 * kConsumers;  // (b): keys of a unit, 64 a consumer
+constexpr int kTileKeys = 64;               // (c): keys of a streamed tile
+constexpr uint32_t kSmemMax = 232448;       // dynamic shared memory of a block
+
+// Shared memory of (b): the unit's K and V tiles, a ring of row tiles (Q,
+// dO and their rows' lse and delta), and a staging buffer a consumer for
+// the output. Tiles are Swizzle<D> boxes; a row tile's box holds kRows rows.
 template <int D>
-struct Cfg {
-  static_assert(D % 16 == 0 && D <= kMaxD, "D must be a multiple of 16, <= 128");
-  static constexpr int kP = D + 8;  // row pitch in elements
-  // (b): K, V [64, P] for the block's life; Q, dO [32, P] a step.
-  static constexpr size_t kDkdvBytes =
-      sizeof(bf16) * (2 * kRows + 2 * kStep) * kP + 2 * sizeof(float) * kStep;
-  // (c): Q, dO [64, P] for the block's life; K, V [64, P] a step.
-  static constexpr size_t kDqBytes = sizeof(bf16) * 4 * kRows * kP;
+struct DkdvLayout : Swizzle<D> {
+  static constexpr int kW = Swizzle<D>::kW;
+  static constexpr uint32_t kRowBox = kRows * 2 * kW;
+  static constexpr uint32_t kRowTile = kRows * D * 2;
+  static constexpr uint32_t kUnitBox = kUnitKeys * 2 * kW;
+  static constexpr uint32_t kUnitTile = kUnitKeys * D * 2;
+  static constexpr uint32_t kOBytes = align_up(64 * (D + 8) * 2, 1024);
+  static constexpr uint32_t bytes(int st) {
+    return 2 * kUnitTile + st * (2 * kRowTile + 8 * kRows) + kConsumers * kOBytes +
+           (2 * st + 2) * 8 + 1024;
+  }
+  static constexpr int kStages = bytes(3) <= kSmemMax ? 3 : 2;
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kUnitTile;
+  static constexpr uint32_t kQ = 2 * kUnitTile;
+  static constexpr uint32_t kDO = kQ + kStages * kRowTile;
+  static constexpr uint32_t kO = kDO + kStages * kRowTile;
+  static constexpr uint32_t kLse = kO + kConsumers * kOBytes;  // float [kStages][kRows]
+  static constexpr uint32_t kDelta = kLse + kStages * kRows * 4;
+  static constexpr uint32_t kBar = kDelta + kStages * kRows * 4;
+  static constexpr uint32_t kBytes = bytes(kStages);
+  static_assert(kBytes <= kSmemMax, "dkdv tiles exceed shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+// Shared memory of (c): each consumer's Q and dO row tiles, a ring of K and
+// V tiles of kTileKeys keys, and a staging buffer a consumer.
+template <int D>
+struct DqLayout : Swizzle<D> {
+  static constexpr int kW = Swizzle<D>::kW;
+  static constexpr uint32_t kRowBox = kRows * 2 * kW;
+  static constexpr uint32_t kRowTile = kRows * D * 2;
+  static constexpr uint32_t kKeyBox = kTileKeys * 2 * kW;
+  static constexpr uint32_t kKeyTile = kTileKeys * D * 2;
+  static constexpr uint32_t kOBytes = align_up(64 * (D + 8) * 2, 1024);
+  static constexpr uint32_t bytes(int st) {
+    return 2 * kConsumers * kRowTile + 2 * st * kKeyTile + kConsumers * kOBytes +
+           (4 * st + 2) * 8 + 1024;
+  }
+  static constexpr int kStages = bytes(4) <= kSmemMax ? 4 : (bytes(3) <= kSmemMax ? 3 : 2);
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDO = kConsumers * kRowTile;
+  static constexpr uint32_t kK = 2 * kConsumers * kRowTile;
+  static constexpr uint32_t kV = kK + kStages * kKeyTile;
+  static constexpr uint32_t kO = kV + kStages * kKeyTile;
+  static constexpr uint32_t kBar = kO + kConsumers * kOBytes;
+  static constexpr uint32_t kBytes = bytes(kStages);
+  static_assert(kBytes <= kSmemMax, "dq tiles exceed shared memory");
+};
+
+// 4-byte asynchronous copy to shared memory; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
 }
 
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and register j receives matrix j's fragment.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// Arrive on `bar` once this thread's earlier cp.async copies have landed;
+// the arrival is one of those the barrier was initialised to expect.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Addresses for ldmatrix in a row-major tile of pitch P elements.
-// A operand (16 rows x 16 columns at (r0, c0)): matrices (r0, c0),
-// (r0 + 8, c0), (r0, c0 + 8), (r0 + 8, c0 + 8) -> a[0..3].
-__device__ __forceinline__ uint32_t a_addr(const bf16* tile, int P, int r0, int c0,
-                                           int lane) {
-  const int m = lane / 8;
-  return smem_addr(tile + (r0 + lane % 8 + 8 * (m & 1)) * P + c0 + 8 * (m >> 1));
-}
-// B operand of two n-tiles from a tile stored [n][k] (B[k][n] = tile[n][k]):
-// matrices (n0, k0), (n0, k0 + 8), (n0 + 8, k0), (n0 + 8, k0 + 8) ->
-// (b0, b1) of n-tile n0 and of n-tile n0 + 8.
-__device__ __forceinline__ uint32_t bn_addr(const bf16* tile, int P, int n0, int k0,
-                                            int lane) {
-  const int m = lane / 8;
-  return smem_addr(tile + (n0 + lane % 8 + 8 * (m >> 1)) * P + k0 + 8 * (m & 1));
-}
-// B operand of two n-tiles from a tile stored [k][n] (read transposed):
-// matrices (k0, n0), (k0 + 8, n0), (k0, n0 + 8), (k0 + 8, n0 + 8).
-__device__ __forceinline__ uint32_t bk_addr(const bf16* tile, int P, int k0, int n0,
-                                            int lane) {
-  const int m = lane / 8;
-  return smem_addr(tile + (k0 + lane % 8 + 8 * (m & 1)) * P + n0 + 8 * (m >> 1));
-}
-
-// 16-byte copies of `rows` rows into a padded tile; row r comes from
-// src(r), or is zero where src(r) is null.
+// Write a warpgroup's 64 x D float32 accumulator (the m64 nD fragment
+// layout: acc[4 n + e] is row 16 (warp % 4) + lane / 4 + 8 (e >> 1),
+// column 8 n + 2 (lane % 4) + (e & 1)) as bfloat16 rows: staged row-major
+// in `stage`, then 16-byte stores to dst(r) for each row r it gives.
 template <int D, typename F>
-__device__ __forceinline__ void load_tile(bf16* dst, int rows, F src) {
-  constexpr int kChunks = D / 8;
-  for (int x = threadIdx.x; x < rows * kChunks; x += kThreads) {
-    const int r = x / kChunks;
-    const int c = (x - r * kChunks) * 8;
-    const bf16* s = src(r);
-    *reinterpret_cast<uint4*>(dst + r * Cfg<D>::kP + c) =
-        s != nullptr ? *reinterpret_cast<const uint4*>(s + c) : make_uint4(0, 0, 0, 0);
+__device__ __forceinline__ void store_tile(const float (&acc)[D / 2], unsigned char* stage,
+                                           int wg, F dst) {
+  constexpr uint32_t kPitch = (D + 8) * 2;  // 8 rows of a quad fall in 8 bank groups
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  named_sync(1 + wg, 128);  // the last unit's stores have read the stage
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    *reinterpret_cast<uint32_t*>(stage + r * kPitch + col * 2) =
+        pack_bf16(acc[i], acc[i + 1]);
+  }
+  named_sync(1 + wg, 128);
+  for (int idx = threadIdx.x % 128; idx < 64 * D / 8; idx += 128) {
+    const int r = idx / (D / 8);
+    const int col = (idx % (D / 8)) * 8;
+    bf16* out = dst(r);
+    if (out != nullptr)
+      *reinterpret_cast<uint4*>(out + col) =
+          *reinterpret_cast<const uint4*>(stage + r * kPitch + col * 2);
   }
 }
 
-// The two accumulator fragments (n-tiles 2j, 2j + 1) of a 16 x 16 block of
-// a score tile as the A operand (16 x k16) of the next product.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                     const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+// A unit of (b): kUnitKeys keys from t0 of kv head kvh in batch row b. Its
+// steps are the row tiles that can see those keys: positions s0 from
+// s_start (t0 when causal, else 0) to S - 1 in blocks of p.pos, and for
+// each the head blocks gi < G / p.gb in turn. Units are numbered longest
+// first: with causal masking the first keys see the most rows.
+struct KeyUnit {
+  int t0, kvh, b, s_start;
+};
+
+__device__ __forceinline__ KeyUnit key_unit(int w, const Params& p) {
+  const int per = p.KV * p.B;
+  KeyUnit u;
+  u.t0 = w / per * kUnitKeys;
+  u.kvh = w % per % p.KV;
+  u.b = w % per / p.KV;
+  u.s_start = p.causal ? u.t0 : 0;
+  return u;
 }
 
-// (b) dk, dv of 64 keys; warp w owns keys t0 + 16 w .. + 15. A step takes 32
-// folded rows: S^T = K Q^T and dP^T = V dO^T (16 x 32 a warp), then
-// dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A operands.
+// (b) dk, dv: persistent blocks; consumer wg owns keys t0 + 64 wg .. + 63 of
+// each unit and keeps their dK and dV in registers across the steps.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_bf16(const Params p) {
-  using C = Cfg<D>;
-  constexpr int P = C::kP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kRows * P;
-  bf16* sQ = sV + kRows * P;
-  bf16* sD = sQ + kStep * P;
-  float* sLse = reinterpret_cast<float*>(sD + kStep * P);
-  float* sDelta = sLse + kStep;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = DkdvLayout<D>;
+  constexpr int kSt = L::kStages;
+  constexpr int kW = L::kW;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms need 1024 B
+  unsigned char* smem = smem_raw + (base - raw);
+  float* s_lse = reinterpret_cast<float*>(smem + L::kLse);
+  float* s_delta = reinterpret_cast<float*>(smem + L::kDelta);
+  // Ring barriers: full (the TMA bytes and the producer warp's lse / delta
+  // copies landed) and empty (every consumer warp is done with the stage);
+  // the unit's K and V have a pair of their own.
+  const uint32_t bar = base + L::kBar;
+  auto full = [&](int s) { return bar + 8 * s; };
+  auto empty = [&](int s) { return bar + 8 * (kSt + s); };
+  const uint32_t kv_full = bar + 16 * kSt;
+  const uint32_t kv_empty = kv_full + 8;
 
   const int G = p.H / p.KV;
-  const int n_rows = p.S * G;
-  const int t0 = blockIdx.x * kRows;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_gb = G / p.gb;
+  const int rows = p.gb * p.pos;  // folded rows a step loads; the rest stay zero
+  const int n_units = (p.T + kUnitKeys - 1) / kUnitKeys * p.KV * p.B;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full(s), 1 + 32);  // lane 0's expect_tx and 32 cp.async arrivals
+      mbar_init(empty(s), 4 * kConsumers);
+    }
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 4 * kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Rows rows..kRows-1 of every stage are never loaded: zero them (q, do,
+  // lse, delta) once, so that they add nothing to dk and dv.
+  if (rows < kRows) {
+    const int tail = (kRows - rows) * 2 * kW / 16;  // 16-byte chunks a box
+    const int n = 2 * kSt * L::kBoxes * tail;
+    for (int x = threadIdx.x; x < n; x += kThreads) {
+      const int box = x / tail;  // (tensor, stage, box) in order, as laid out
+      *reinterpret_cast<uint4*>(smem + L::kQ + box * L::kRowBox + rows * 2 * kW +
+                                (x % tail) * 16) = make_uint4(0, 0, 0, 0);
+    }
+    for (int x = threadIdx.x; x < kSt * kRows; x += kThreads)
+      if (x % kRows >= rows) s_lse[x] = s_delta[x] = 0.f;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tg = lane % 4;
-  const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* dout = static_cast<const bf16*>(p.dout);
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  load_tile<D>(sK, kRows, [&](int r) { return t0 + r < p.T ? kb + (t0 + r) * p.k_st : nullptr; });
-  load_tile<D>(sV, kRows, [&](int r) { return t0 + r < p.T ? vb + (t0 + r) * p.v_st : nullptr; });
-
-  float dk[D / 8][4], dv[D / 8][4];
+  if (warp >= 4 * kConsumers) {
+    // ---- producer warp: the unit's K and V, then its steps through the ring -
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers) {
+      // The lane's rows of a step, r = lane + 32 k: position and head
+      // offsets within the tile (no division inside the loops).
+      int r_pos[2], r_head[2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+      for (int k = 0; k < 2; ++k) {
+        r_pos[k] = (lane + 32 * k) / p.gb;
+        r_head[k] = (lane + 32 * k) % p.gb;
+      }
+      int g = 0;  // the block's step count so far: ring stage and phase
+      for (int i = 0, w; (w = unit_index(i, n_units)) >= 0; ++i) {
+        const KeyUnit u = key_unit(w, p);
+        if (lane == 0) {
+          mbar_wait(kv_empty, (i & 1) ^ 1);
+          mbar_expect_tx(kv_full, 2 * L::kUnitTile);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int key[2] = {t0 + 16 * warp + g, t0 + 16 * warp + g + 8};
-  const float c2 = p.scale * kLog2e;
-
-  for (int i0 = p.causal ? t0 * G : 0; i0 < n_rows; i0 += kStep) {
-    __syncthreads();  // the last step is done with sQ, sD
-    load_tile<D>(sQ, kStep, [&](int r) {
-      return i0 + r < n_rows ? q + row_off(b, i0 + r, kvh, G, p.q_sb, p.q_ss, p.q_sh) : nullptr;
-    });
-    load_tile<D>(sD, kStep, [&](int r) {
-      return i0 + r < n_rows ? dout + row_off(b, i0 + r, kvh, G, p.d_sb, p.d_ss, p.d_sh)
-                             : nullptr;
-    });
-    for (int r = threadIdx.x; r < kStep; r += kThreads) {
-      const bool ok = i0 + r < n_rows;
-      sLse[r] = ok ? p.lse[lse_index(p, b, i0 + r, kvh, G)] * kLog2e : 0.f;
-      sDelta[r] = ok ? p.delta[lse_index(p, b, i0 + r, kvh, G)] : 0.f;
-    }
-    __syncthreads();
-
-    float st[kStep / 8][4], dpt[kStep / 8][4];
+          for (int x = 0; x < L::kBoxes; ++x) {
+            tma_load(base + L::kK + x * L::kUnitBox, &tm_k, kv_full, x * kW, u.kvh, u.t0, u.b);
+            tma_load(base + L::kV + x * L::kUnitBox, &tm_v, kv_full, x * kW, u.kvh, u.t0, u.b);
+          }
+        }
+        for (int s0 = u.s_start; s0 < p.S; s0 += p.pos)  // the unit's steps
+        for (int gi = 0; gi < n_gb; ++gi, ++g) {
+          const int st = g % kSt;
+          const int h0 = u.kvh * G + gi * p.gb;
+          mbar_wait(empty(st), ((g / kSt) & 1) ^ 1);
+          if (lane == 0) {
+            // A box (w, gb, pos) at (x w, h0, s0, b) lands the step's folded
+            // rows in order; positions >= S are zero-filled.
+            mbar_expect_tx(full(st), 2 * rows * D * 2);
 #pragma unroll
-    for (int n = 0; n < kStep / 8; ++n)
+            for (int x = 0; x < L::kBoxes; ++x) {
+              const uint32_t off = st * L::kRowTile + x * L::kRowBox;
+              tma_load(base + L::kQ + off, &tm_q, full(st), x * kW, h0, s0, u.b);
+              tma_load(base + L::kDO + off, &tm_do, full(st), x * kW, h0, s0, u.b);
+            }
+          }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, a_addr(sK, P, 16 * warp, 16 * kk, lane));
-      ldsm_x4(va, a_addr(sV, P, 16 * warp, 16 * kk, lane));
-#pragma unroll
-      for (int np = 0; np < kStep / 16; ++np) {
-        uint32_t bq[4], bd[4];
-        ldsm_x4(bq, bn_addr(sQ, P, 16 * np, 16 * kk, lane));
-        ldsm_x4(bd, bn_addr(sD, P, 16 * np, 16 * kk, lane));
-        mma(st[2 * np], ka, bq[0], bq[1]);
-        mma(st[2 * np + 1], ka, bq[2], bq[3]);
-        mma(dpt[2 * np], va, bd[0], bd[1]);
-        mma(dpt[2 * np + 1], va, bd[2], bd[3]);
+          for (int k = 0; k < 2; ++k) {
+            const int r = lane + 32 * k;
+            const int s = s0 + r_pos[k];
+            const bool ok = r < rows && s < p.S;
+            const int64_t at = ok ? (static_cast<int64_t>(u.b) * p.S + s) * p.H + h0 + r_head[k] : 0;
+            if (r < rows) {
+              const uint32_t dst = (st * kRows + r) * 4;
+              cp_async4(base + L::kLse + dst, p.lse + at, ok ? 4 : 0);
+              cp_async4(base + L::kDelta + dst, p.delta + at, ok ? 4 : 0);
+            }
+          }
+          cp_async_arrive(full(st));
+        }
       }
     }
-    // p and ds in place: element e of n-tile n is key key[e >> 1], row
-    // 8 n + 2 tg + (e & 1) of the step.
+  } else {
+    // ---- consumer warpgroup: 64 keys of every unit ------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = warp / 4;
+    const int c = lane % 4;
+    const float c2 = p.scale * kLog2e;  // scores in log2 units
+    unsigned char* stage = smem + L::kO + wg * L::kOBytes;
+    const uint32_t sk = base + L::kK + wg * 64 * 2 * kW;  // this warpgroup's keys
+    const uint32_t sv = base + L::kV + wg * 64 * 2 * kW;
+    bf16* gk = static_cast<bf16*>(p.dk);
+    bf16* gv = static_cast<bf16*>(p.dv);
+
+    int g = 0;
+    for (int i = 0, w; (w = unit_index(i, n_units)) >= 0; ++i) {
+      const KeyUnit u = key_unit(w, p);
+      const int tw = u.t0 + 64 * wg;  // this warpgroup's first key
+      int key[2];
 #pragma unroll
-    for (int n = 0; n < kStep / 8; ++n)
+      for (int h = 0; h < 2; ++h) key[h] = tw + 16 * (warp % 4) + lane / 4 + 8 * h;
+      float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 8 * n + 2 * tg + (e & 1);
-        const bool ok = visible(p, i0 + r, key[e >> 1], n_rows, G);
-        const float pv = ok ? exp2f(fmaf(st[n][e], c2, -sLse[r])) : 0.f;
-        st[n][e] = pv;
-        dpt[n][e] = ok ? pv * (dpt[n][e] - sDelta[r]) * p.scale : 0.f;
+      for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+      mbar_wait(kv_full, i & 1);
+
+      // Per step: S^T = K Q^T and dP^T = V dO^T, then p and ds in registers,
+      // then dV += P^T dO and dK += dS^T Q with P^T and dS^T as the register
+      // A operand. The two warpgroups interleave on the tensor cores.
+      for (int s0 = u.s_start; s0 < p.S; s0 += p.pos)  // as the producer walks them
+      for (int gi = 0; gi < n_gb; ++gi, ++g) {
+        const int st = g % kSt;
+        mbar_wait(full(st), (g / kSt) & 1);
+        if (p.causal && s0 + p.pos - 1 < tw) {  // no row of the step sees these keys
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty(st));
+          continue;
+        }
+        const uint32_t sq = base + L::kQ + st * L::kRowTile;
+        const uint32_t sdo = base + L::kDO + st * L::kRowTile;
+        float sc[kRows / 2], dp[kRows / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kb = 0; kb < D / 16; ++kb) {
+          // Box kb * 16 / kW, then 32 bytes per k-step inside its rows.
+          const int box = kb * 16 / kW;
+          const uint32_t off = (kb * 16 % kW) * 2;
+          wgmma_ss(sc, make_desc(sk + box * L::kUnitBox + off, 1, kW, L::kLayout),
+                   make_desc(sq + box * L::kRowBox + off, 1, kW, L::kLayout), kb > 0);
+        }
+#pragma unroll
+        for (int kb = 0; kb < D / 16; ++kb) {
+          const int box = kb * 16 / kW;
+          const uint32_t off = (kb * 16 % kW) * 2;
+          wgmma_ss(dp, make_desc(sv + box * L::kUnitBox + off, 1, kW, L::kLayout),
+                   make_desc(sdo + box * L::kRowBox + off, 1, kW, L::kLayout), kb > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // p and ds in place: element 4 n + e is key key[e >> 1] and row
+        // 8 n + 2 c + (e & 1) of the step, position s0 + row / gb. On a step
+        // that crosses the diagonal, rows below thr[h] come before key[h].
+        const float* lse = s_lse + st * kRows;
+        const float* dl = s_delta + st * kRows;
+        int thr[2] = {0, 0};
+        if (p.causal && s0 < tw + 63) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) thr[h] = max(0, key[h] - s0) * p.gb;
+        }
+#pragma unroll
+        for (int n = 0; n < kRows / 8; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * n + 2 * c);
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 8 * n + 2 * c + (e & 1);
+            const float lr = (e & 1) ? l2.y : l2.x;
+            const float dr = (e & 1) ? d2.y : d2.x;
+            float pv = ex2(fmaf(sc[4 * n + e], c2, -lr * kLog2e));
+            if (r < thr[e >> 1]) pv = 0.f;
+            sc[4 * n + e] = pv;
+            dp[4 * n + e] = pv * (dp[4 * n + e] - dr) * p.scale;
+          }
+        }
+        uint32_t pa[kRows / 16][4], da[kRows / 16][4];
+        pack_a<kRows>(sc, pa);  // p rounded to v's type for dV
+        pack_a<kRows>(dp, da);  // ds rounded to q's type for dK
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          wgmma_rs(dv, pa[kk],
+                   make_desc(sdo + kk * 16 * 2 * kW, L::kRowBox / 16, kW, L::kLayout));
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          wgmma_rs(dk, da[kk],
+                   make_desc(sq + kk * 16 * 2 * kW, L::kRowBox / 16, kW, L::kLayout));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
       }
-#pragma unroll
-    for (int j = 0; j < kStep / 16; ++j) {
-      uint32_t pa[4], da[4];
-      to_a(pa, st[2 * j], st[2 * j + 1]);
-      to_a(da, dpt[2 * j], dpt[2 * j + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bd[4], bq[4];
-        ldsm_x4_t(bd, bk_addr(sD, P, 16 * j, 16 * dn, lane));
-        ldsm_x4_t(bq, bk_addr(sQ, P, 16 * j, 16 * dn, lane));
-        mma(dv[2 * dn], pa, bd[0], bd[1]);
-        mma(dv[2 * dn + 1], pa, bd[2], bd[3]);
-        mma(dk[2 * dn], da, bq[0], bq[1]);
-        mma(dk[2 * dn + 1], da, bq[2], bq[3]);
-      }
-    }
-  }
-  // dk, dv rows key[0], key[1]; columns 8 n + 2 tg, + 1.
-  bf16* gk = static_cast<bf16*>(p.dk);
-  bf16* gv = static_cast<bf16*>(p.dv);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (key[h] >= p.T) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * p.T + key[h]) * p.KV + kvh) * D + 2 * tg;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(gk + off + 8 * n) = pack_bf16(dk[n][2 * h], dk[n][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(gv + off + 8 * n) = pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);  // the producer may load the next unit's K, V
+
+      auto row = [&](bf16* g0) {
+        return [&, g0](int r) -> bf16* {
+          const int t = tw + r;
+          return t < p.T ? g0 + ((static_cast<int64_t>(u.b) * p.T + t) * p.KV + u.kvh) * D
+                         : nullptr;
+        };
+      };
+      store_tile<D>(dk, stage, wg, row(gk));
+      store_tile<D>(dv, stage, wg, row(gv));
     }
   }
 }
 
-// (c) dq of 64 folded rows; warp w owns rows i0 + 16 w .. + 15. A step
-// takes 64 keys: S = Q K^T and dP = dO V^T (16 x 64 a warp), then
-// dQ += dS K with dS as the register A operand.
+// A unit of (c): positions s0 .. s0 + kConsumers pos - 1 (pos a consumer) x
+// gb heads from h0 of kv head kvh in batch row b, and the key tiles up to
+// its last position (causal) or T. Units are numbered longest first: with
+// causal masking the last positions see the most keys.
+struct RowUnit {
+  int s0, h0, kvh, b, n_tiles;
+};
+
+__device__ __forceinline__ RowUnit row_unit(int w, const Params& p, int n_gb,
+                                            int n_row_tiles) {
+  const int per = n_gb * p.KV * p.B;
+  const int x = w % per;
+  RowUnit u;
+  u.s0 = (n_row_tiles - 1 - w / per) * kConsumers * p.pos;
+  u.kvh = x / n_gb % p.KV;
+  u.b = x / n_gb / p.KV;
+  u.h0 = u.kvh * (p.H / p.KV) + x % n_gb * p.gb;
+  int t_end = p.T;
+  if (p.causal) t_end = min(t_end, min(u.s0 + kConsumers * p.pos, p.S));
+  u.n_tiles = (t_end + kTileKeys - 1) / kTileKeys;
+  return u;
+}
+
+// (c) dq: persistent blocks; consumer wg owns the rows of positions s0 +
+// pos wg .. + pos - 1 of each unit and keeps their dQ in registers across
+// the key tiles.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(const Params p) {
-  using C = Cfg<D>;
-  constexpr int P = C::kP;
-  constexpr int kKeys = 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sD = sQ + kRows * P;
-  bf16* sK = sD + kRows * P;
-  bf16* sV = sK + kKeys * P;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = DqLayout<D>;
+  constexpr int kSt = L::kStages;
+  constexpr int kW = L::kW;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  // K/V ring barriers as in the forward, and a full / empty pair for the
+  // unit's Q and dO.
+  const uint32_t bar = base + L::kBar;
+  auto full_k = [&](int s) { return bar + 8 * s; };
+  auto full_v = [&](int s) { return bar + 8 * (kSt + s); };
+  auto empty_k = [&](int s) { return bar + 8 * (2 * kSt + s); };
+  auto empty_v = [&](int s) { return bar + 8 * (3 * kSt + s); };
+  const uint32_t q_full = bar + 32 * kSt;
+  const uint32_t q_empty = q_full + 8;
 
   const int G = p.H / p.KV;
-  const int n_rows = p.S * G;
-  const int i0 = blockIdx.x * kRows;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_gb = G / p.gb;
+  const int rows = p.gb * p.pos;
+  const int n_row_tiles = (p.S + kConsumers * p.pos - 1) / (kConsumers * p.pos);
+  const int n_units = n_row_tiles * n_gb * p.KV * p.B;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * kConsumers);
+      mbar_init(empty_v(s), 4 * kConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tg = lane % 4;
-  const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* dout = static_cast<const bf16*>(p.dout);
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  load_tile<D>(sQ, kRows, [&](int r) {
-    return i0 + r < n_rows ? q + row_off(b, i0 + r, kvh, G, p.q_sb, p.q_ss, p.q_sh) : nullptr;
-  });
-  load_tile<D>(sD, kRows, [&](int r) {
-    return i0 + r < n_rows ? dout + row_off(b, i0 + r, kvh, G, p.d_sb, p.d_ss, p.d_sh)
-                           : nullptr;
-  });
-  const int row[2] = {i0 + 16 * warp + g, i0 + 16 * warp + g + 8};
-  float lse2[2], delta[2];
+  if (warp >= 4 * kConsumers) {
+    // ---- producer: one thread loads each unit's Q, dO and its K/V tiles ---
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      int g = 0;
+      for (int i = 0, w; (w = unit_index(i, n_units)) >= 0; ++i) {
+        const RowUnit u = row_unit(w, p, n_gb, n_row_tiles);
+        const int n_wg = min(kConsumers, (p.S - u.s0 + p.pos - 1) / p.pos);  // with rows
+        mbar_wait(q_empty, (i & 1) ^ 1);
+        mbar_expect_tx(q_full, n_wg * 2 * rows * D * 2);
+        for (int x = 0; x < n_wg * L::kBoxes; ++x) {
+          const int c = x / L::kBoxes;
+          const uint32_t off = c * L::kRowTile + x % L::kBoxes * L::kRowBox;
+          const int s = u.s0 + c * p.pos;
+          tma_load(base + L::kQ + off, &tm_q, q_full, x % L::kBoxes * kW, u.h0, s, u.b);
+          tma_load(base + L::kDO + off, &tm_do, q_full, x % L::kBoxes * kW, u.h0, s, u.b);
+        }
+        for (int j = 0; j < u.n_tiles; ++j, ++g) {
+          const int s = g % kSt;
+          const uint32_t free_parity = ((g / kSt) & 1) ^ 1;
+          mbar_wait(empty_k(s), free_parity);
+          mbar_expect_tx(full_k(s), L::kKeyTile);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool ok = row[h] < n_rows;
-    lse2[h] = ok ? p.lse[lse_index(p, b, row[h], kvh, G)] * kLog2e : 0.f;
-    delta[h] = ok ? p.delta[lse_index(p, b, row[h], kvh, G)] : 0.f;
-  }
-  const float c2 = p.scale * kLog2e;
-  float dq[D / 8][4];
+          for (int x = 0; x < L::kBoxes; ++x)
+            tma_load(base + L::kK + s * L::kKeyTile + x * L::kKeyBox, &tm_k, full_k(s),
+                     x * kW, u.kvh, j * kTileKeys, u.b);
+          mbar_wait(empty_v(s), free_parity);
+          mbar_expect_tx(full_v(s), L::kKeyTile);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-  int t_end = p.T;  // causal: keys up to the tile's last query
-  if (p.causal) t_end = min(t_end, (min(i0 + kRows, n_rows) - 1) / G + 1);
-
-  for (int t0 = 0; t0 < t_end; t0 += kKeys) {
-    __syncthreads();  // the last step is done with sK, sV
-    load_tile<D>(sK, kKeys, [&](int r) { return t0 + r < p.T ? kb + (t0 + r) * p.k_st : nullptr; });
-    load_tile<D>(sV, kKeys, [&](int r) { return t0 + r < p.T ? vb + (t0 + r) * p.v_st : nullptr; });
-    __syncthreads();
-
-    float s[kKeys / 8][4], dp[kKeys / 8][4];
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      ldsm_x4(qa, a_addr(sQ, P, 16 * warp, 16 * kk, lane));
-      ldsm_x4(da, a_addr(sD, P, 16 * warp, 16 * kk, lane));
-#pragma unroll
-      for (int np = 0; np < kKeys / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, bn_addr(sK, P, 16 * np, 16 * kk, lane));
-        ldsm_x4(bv, bn_addr(sV, P, 16 * np, 16 * kk, lane));
-        mma(s[2 * np], qa, bk[0], bk[1]);
-        mma(s[2 * np + 1], qa, bk[2], bk[3]);
-        mma(dp[2 * np], da, bv[0], bv[1]);
-        mma(dp[2 * np + 1], da, bv[2], bv[3]);
+          for (int x = 0; x < L::kBoxes; ++x)
+            tma_load(base + L::kV + s * L::kKeyTile + x * L::kKeyBox, &tm_v, full_v(s),
+                     x * kW, u.kvh, j * kTileKeys, u.b);
+        }
       }
     }
-    // ds in place of dp: element e of n-tile n is row row[e >> 1], key
-    // t0 + 8 n + 2 tg + (e & 1).
+  } else {
+    // ---- consumer warpgroup: 64 folded rows of every unit ------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = warp / 4;
+    const int c = lane % 4;
+    const float c2 = p.scale * kLog2e;
+    unsigned char* stage = smem + L::kO + wg * L::kOBytes;
+    const uint32_t sq = base + L::kQ + wg * L::kRowTile;
+    const uint32_t sdo = base + L::kDO + wg * L::kRowTile;
+    bf16* gq = static_cast<bf16*>(p.dq);
+
+    int g = 0;
+    for (int i = 0, w; (w = unit_index(i, n_units)) >= 0; ++i) {
+      const RowUnit u = row_unit(w, p, n_gb, n_row_tiles);
+      const int sp = u.s0 + wg * p.pos;  // this warpgroup's first position
+      // The thread's accumulator rows r = 16 (warp % 4) + lane / 4 + 8 h:
+      // position, lse (log2 units) and delta; rows past the data are 0.
+      int pos[2];
+      float lse2[2], dlt[2];
 #pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const bool ok = visible(p, row[h], t0 + 8 * n + 2 * tg + (e & 1), n_rows, G);
-        const float pv = ok ? exp2f(fmaf(s[n][e], c2, -lse2[h])) : 0.f;
-        dp[n][e] = ok ? pv * (dp[n][e] - delta[h]) * p.scale : 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * (warp % 4) + lane / 4 + 8 * h;
+        pos[h] = sp + r / p.gb;
+        const bool ok = r < rows && pos[h] < p.S;
+        const int64_t at = (static_cast<int64_t>(u.b) * p.S + pos[h]) * p.H + u.h0 + r % p.gb;
+        lse2[h] = ok ? p.lse[at] * kLog2e : 0.f;
+        dlt[h] = ok ? p.delta[at] : 0.f;
       }
-#pragma unroll
-    for (int j = 0; j < kKeys / 16; ++j) {
-      uint32_t a[4];
-      to_a(a, dp[2 * j], dp[2 * j + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, bk_addr(sK, P, 16 * j, 16 * dn, lane));
-        mma(dq[2 * dn], a, bk[0], bk[1]);
-        mma(dq[2 * dn + 1], a, bk[2], bk[3]);
+      int n_mine = 0;  // key tiles this warpgroup needs (0 if it has no rows)
+      if (sp < p.S) {
+        int te = p.T;
+        if (p.causal) te = min(te, min(sp + p.pos, p.S));
+        n_mine = (te + kTileKeys - 1) / kTileKeys;
       }
+      float dq[D / 2];
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+      mbar_wait(q_full, i & 1);
+
+      // Per key tile: S = Q K^T and dP = dO V^T, release V, ds in registers,
+      // dQ += dS K with dS as the register A operand, release K.
+      for (int j = 0; j < u.n_tiles; ++j, ++g) {
+        const int st = g % kSt;
+        const uint32_t ph = (g / kSt) & 1;
+        if (j < n_mine) {
+          const uint32_t sk = base + L::kK + st * L::kKeyTile;
+          const uint32_t sv = base + L::kV + st * L::kKeyTile;
+          float sc[kTileKeys / 2], dp[kTileKeys / 2];
+          mbar_wait(full_k(st), ph);
+          wgmma_fence();
+#pragma unroll
+          for (int kb = 0; kb < D / 16; ++kb) {
+            const int box = kb * 16 / kW;
+            const uint32_t off = (kb * 16 % kW) * 2;
+            wgmma_ss(sc, make_desc(sq + box * L::kRowBox + off, 1, kW, L::kLayout),
+                     make_desc(sk + box * L::kKeyBox + off, 1, kW, L::kLayout), kb > 0);
+          }
+          wgmma_commit();
+          mbar_wait(full_v(st), ph);
+          wgmma_fence();
+#pragma unroll
+          for (int kb = 0; kb < D / 16; ++kb) {
+            const int box = kb * 16 / kW;
+            const uint32_t off = (kb * 16 % kW) * 2;
+            wgmma_ss(dp, make_desc(sdo + box * L::kRowBox + off, 1, kW, L::kLayout),
+                     make_desc(sv + box * L::kKeyBox + off, 1, kW, L::kLayout), kb > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(dp);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty_v(st));
+
+          // ds in place of dp: element 4 n + e is row h = e >> 1, key t0 +
+          // 8 n + 2 c + (e & 1). Masks only on tiles that cross T or the
+          // diagonal (TMA zero-fills keys >= T; they are masked as well).
+          const int t0 = j * kTileKeys;
+          const bool edge = t0 + kTileKeys > p.T || (p.causal && t0 + kTileKeys - 1 > sp);
+#pragma unroll
+          for (int x = 0; x < kTileKeys / 2; ++x) {
+            const int h = (x >> 1) & 1;
+            float pv = ex2(fmaf(sc[x], c2, -lse2[h]));
+            if (edge) {
+              const int t = t0 + 8 * (x / 4) + 2 * c + (x & 1);
+              if (t >= p.T || (p.causal && t > pos[h])) pv = 0.f;
+            }
+            dp[x] = pv * (dp[x] - dlt[h]) * p.scale;
+          }
+          uint32_t da[kTileKeys / 16][4];
+          pack_a<kTileKeys>(dp, da);  // ds rounded to q's type
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kTileKeys / 16; ++kk)
+            wgmma_rs(dq, da[kk],
+                     make_desc(sk + kk * 16 * 2 * kW, L::kKeyBox / 16, kW, L::kLayout));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty_k(st));
+        } else {
+          // Wholly masked for these rows: only keep the ring's phases.
+          mbar_wait(full_k(st), ph);
+          mbar_wait(full_v(st), ph);
+          __syncwarp();
+          if (lane == 0) {
+            mbar_arrive(empty_k(st));
+            mbar_arrive(empty_v(st));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);  // the producer may load the next Q, dO
+
+      store_tile<D>(dq, stage, wg, [&](int r) -> bf16* {
+        const int s = sp + r / p.gb;
+        return r < rows && s < p.S
+                   ? gq + ((static_cast<int64_t>(u.b) * p.S + s) * p.H + u.h0 + r % p.gb) * D
+                   : nullptr;
+      });
     }
   }
-  bf16* gq = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= n_rows) continue;
-    const int64_t off = row_off(b, row[h], kvh, G, static_cast<int64_t>(p.S) * p.H * D,
-                                static_cast<int64_t>(p.H) * D, D) + 2 * tg;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(gq + off + 8 * n) = pack_bf16(dq[n][2 * h], dq[n][2 * h + 1]);
-  }
+}
+
+// A row tile is pos positions x gb heads of one kv head: a TMA box (w, gb,
+// pos) over [B, S, H, D] lands its folded rows in order. gb = G where G <=
+// kRows (every config), else the largest divisor of G that is; pos =
+// kRows / gb, so a tile fills gb * pos of its kRows rows (63 for G = 3).
+void set_row_tile(Params& p) {
+  const int G = p.H / p.KV;
+  int gb = G <= kRows ? G : kRows;
+  while (G % gb != 0) --gb;
+  p.gb = gb;
+  p.pos = kRows / gb;
+}
+
+// Once per instantiation: raise the shared-memory limit, and refuse to
+// launch if setmaxnreg's targets exceed the registers the block is given
+// (the consumers' setmaxnreg.inc would wait for them forever).
+template <typename K>
+int prepare(K kernel, uint32_t bytes) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (attr.numRegs * kThreads < 128 * kConsumers * kConsumerRegs + 128 * kProducerRegs)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  return 0;
+}
+
+// Launch (b) or (c) on persistent blocks, one an SM: maps over q and do
+// ([B, S, H, D], box (w, gb, pos)) and over k and v ([B, T, KV, D], box (w,
+// 1, keys)) with the tensors' own strides.
+template <int D, typename K>
+int launch_tc(K kernel, int ready, uint32_t bytes, int keys, int n_units, const Params& p,
+              cudaStream_t stream) {
+  using Z = Swizzle<D>;
+  if (ready != 0) return ready;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if (!encode_4d(&tm_q, p.q, D, p.H, p.S, p.B, p.q_sh, p.q_ss, p.q_sb, Z::kW, p.gb, p.pos,
+                 Z::kMode) ||
+      !encode_4d(&tm_do, p.dout, D, p.H, p.S, p.B, p.d_sh, p.d_ss, p.d_sb, Z::kW, p.gb,
+                 p.pos, Z::kMode) ||
+      !encode_4d(&tm_k, p.k, D, p.KV, p.T, p.B, p.k_sh, p.k_st, p.k_sb, Z::kW, 1, keys,
+                 Z::kMode) ||
+      !encode_4d(&tm_v, p.v, D, p.KV, p.T, p.B, p.v_sh, p.v_st, p.v_sb, Z::kW, 1, keys,
+                 Z::kMode))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = n_units < sm_count() ? n_units : sm_count();
+  if (blocks <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  kernel<<<blocks, kThreads, bytes, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkdv(const Params& p, cudaStream_t stream) {
+  using L = DkdvLayout<D>;
+  static const int ready = prepare(flash_bwd_dkdv_bf16<D>, L::kBytes);
+  const int n_units = (p.T + kUnitKeys - 1) / kUnitKeys * p.KV * p.B;
+  return launch_tc<D>(flash_bwd_dkdv_bf16<D>, ready, L::kBytes, kUnitKeys, n_units, p,
+                      stream);
+}
+
+template <int D>
+int launch_dq(const Params& p, cudaStream_t stream) {
+  using L = DqLayout<D>;
+  static const int ready = prepare(flash_bwd_dq_bf16<D>, L::kBytes);
+  const int n_gb = p.H / p.KV / p.gb;
+  const int n_units =
+      (p.S + kConsumers * p.pos - 1) / (kConsumers * p.pos) * n_gb * p.KV * p.B;
+  return launch_tc<D>(flash_bwd_dq_bf16<D>, ready, L::kBytes, kTileKeys, n_units, p, stream);
 }
 
 }  // namespace tc
-
-// f(std::integral_constant<int, D>{}) for the head sizes the kernels take.
-template <typename F>
-int with_d(int D, F f) {
-  switch (D) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 48: return f(std::integral_constant<int, 48>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 80: return f(std::integral_constant<int, 80>{});
-    case 96: return f(std::integral_constant<int, 96>{});
-    case 112: return f(std::integral_constant<int, 112>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // Launch `kernel` (128 threads a block) with `smem` bytes of dynamic shared
 // memory; `attr` is the result of raising its limit, made once per kernel by
@@ -711,7 +1067,7 @@ int raise_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-static_assert(f32::kThreads == 128 && tc::kThreads == 128, "launch() uses 128 threads");
+static_assert(f32::kThreads == 128, "launch() uses 128 threads");
 
 Params make_params(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const int64_t* strides, int B, int S, int T,
@@ -787,15 +1143,11 @@ extern "C" int flash_bwd_dkdv(int dtype, const void* q, const void* k, const voi
   p.delta = delta;
   p.dk = dk;
   p.dv = dv;
+  tc::set_row_tile(p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_d(D, [&](auto d) {
+  return sm90::with_d(D, static_cast<int>(cudaErrorInvalidValue), [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (dtype == 1) {
-      constexpr size_t bytes = tc::Cfg<kD>::kDkdvBytes;
-      static const int attr = raise_smem(tc::flash_bwd_dkdv_bf16<kD>, bytes);
-      return launch(tc::flash_bwd_dkdv_bf16<kD>, attr,
-                    dim3((T + tc::kRows - 1) / tc::kRows, KV, B), bytes, p, st);
-    }
+    if (dtype == 1) return tc::launch_dkdv<kD>(p, st);
     if (dtype == 0) {
       const size_t bytes = f32::Layout(kD).bytes;
       static const int attr = raise_smem(f32::flash_bwd_dkdv_f32<kD>, bytes);
@@ -816,16 +1168,12 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k, const void*
   p.lse = lse;
   p.delta = delta;
   p.dq = dq;
+  tc::set_row_tile(p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rows = S * (H / KV);
-  return with_d(D, [&](auto d) {
+  return sm90::with_d(D, static_cast<int>(cudaErrorInvalidValue), [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (dtype == 1) {
-      constexpr size_t bytes = tc::Cfg<kD>::kDqBytes;
-      static const int attr = raise_smem(tc::flash_bwd_dq_bf16<kD>, bytes);
-      return launch(tc::flash_bwd_dq_bf16<kD>, attr,
-                    dim3((n_rows + tc::kRows - 1) / tc::kRows, KV, B), bytes, p, st);
-    }
+    if (dtype == 1) return tc::launch_dq<kD>(p, st);
     if (dtype == 0) {
       const size_t bytes = f32::Layout(kD).bytes;
       static const int attr = raise_smem(f32::flash_bwd_dq_f32<kD>, bytes);
@@ -833,5 +1181,18 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k, const void*
                     dim3((n_rows + f32::kTile - 1) / f32::kTile, KV, B), bytes, p, st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
+  });
+}
+
+// Dynamic shared memory of one block of kernel (1 = dkdv, 2 = dq) for dtype
+// (0 = float32, 1 = bfloat16) and head size D, in bytes; -1 for a kernel or
+// D the library does not have.
+extern "C" int flash_bwd_smem_bytes(int kernel, int dtype, int D) {
+  if (D <= 0 || D % 16 != 0 || D > kMaxD || (kernel != 1 && kernel != 2)) return -1;
+  if (dtype == 0) return static_cast<int>(f32::Layout(D).bytes);
+  return sm90::with_d(D, -1, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return static_cast<int>(kernel == 1 ? tc::DkdvLayout<kD>::kBytes
+                                        : tc::DqLayout<kD>::kBytes);
   });
 }

@@ -237,6 +237,24 @@ def test_library_path_is_keyed_on_the_source(tmp_path):
         "libflash_attention_")
 
 
+def test_library_path_is_keyed_on_the_shared_headers(tmp_path, monkeypatch):
+    """The attention sources include ``csrc/*.cuh``: an edited header builds
+    new libraries, as an edited source does (nothing is built here)."""
+    from repro_torch.kernels import build
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("#pragma once\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build._library_path(src)
+    assert build._library_path(src) == before
+    header.write_text("#pragma once\n// edited\n")
+    assert build._library_path(src) != before
+    header.write_text("#pragma once\n")
+    assert build._library_path(src) == before
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_match_plain_versions_on_card():
     """On a card: both kernels against their plain versions at the stated

@@ -210,7 +210,13 @@ def test_cuda_backward_kernels_match_plain_versions_on_card():
     the causal mask, in float32 (2e-5) and bfloat16 (4e-2 elementwise and
     1e-2 of each row's norm, floored at the mean row norm, where that
     mean reaches the elementwise bar), on q, k, v as strided views of one fused
-    tensor; the forward's output is the same with and without lse."""
+    tensor; the forward's output is the same with and without lse. The
+    bf16 bodies' edges: S shorter than one row tile (64 // G positions),
+    S * G ending mid-tile for G = 3 and 8 at D = 128, fewer units than SMs
+    (B = KV = 1, S = 65) and many more (B = KV = 8, S = 512), a
+    non-causal T = 300 ending mid key tile, G = 96 (a row tile takes 48 of
+    the 96 heads); and every result is the same from call to call (no
+    atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the CPU route is covered above)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -232,14 +238,20 @@ def test_cuda_backward_kernels_match_plain_versions_on_card():
             rel = float((d / norm.clamp_min(mean)).max())
             assert rel <= row_tol, (what, rel)
 
-    cases = [(D, G, S, S, causal) for D, G, S, causal in itertools.product(
+    # (B, KV, D, G, S, T, causal)
+    cases = [(2, 2, D, G, S, S, causal) for D, G, S, causal in itertools.product(
         (16, 48, 64, 96, 128), (1, 3, 4, 8), (1, 65, 1000), (True, False))]
-    cases += [(D, G, 65, 200, False) for D in (64, 128) for G in (1, 3)]
+    cases += [(2, 2, D, G, 65, 200, False) for D in (64, 128) for G in (1, 3)]
+    cases += [(2, 2, 128, G, S, S, causal) for G, S in ((1, 5), (3, 10), (8, 3), (3, 100), (8, 100))
+              for causal in (True, False)]
+    cases += [(1, 1, 128, 3, 65, 65, causal) for causal in (True, False)]
+    cases += [(8, 8, 128, 3, 512, 512, True)]
+    cases += [(2, 2, D, G, 65, 300, False) for D in (64, 128) for G in (1, 3, 8)]
+    cases += [(1, 1, 16, 96, 33, 33, causal) for causal in (True, False)]  # G > 64
     for dtype in (torch.float32, torch.bfloat16):
-        for D, G, S, T, causal in cases:
-            B, KV = 2, 2
+        for B, KV, D, G, S, T, causal in cases:
             H = G * KV
-            what = f"D={D} G={G} S={S} T={T} causal={causal} {dtype}"
+            what = f"B={B} KV={KV} D={D} G={G} S={S} T={T} causal={causal} {dtype}"
             q = torch.randn(B, S, H + 2 * KV, D, generator=gen, device="cuda").to(dtype)[:, :, :H]
             kv = torch.randn(B, T, 2 * KV, D, generator=gen, device="cuda").to(dtype)
             k, v = kv[:, :, :KV], kv[:, :, KV:]
@@ -254,6 +266,8 @@ def test_cuda_backward_kernels_match_plain_versions_on_card():
             for name in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"):
                 assert attention.launches[name] == before[name] + 1
             want = ref.ref_flash_attention_bwd(q, k, v, o, lse, do, causal)
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            again = tops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
                 assert g.dtype == w.dtype and g.shape == w.shape
                 close(g, w, dtype, f"{name} {what}")
+                assert torch.equal(g, a), f"{name} differs between two calls at {what}"
