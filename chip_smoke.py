@@ -95,7 +95,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      log-sum-exp and the three backward kernels (delta, dk and dv, dq)
      against their plain versions at the training shapes (llama3.2-3b's
      heads at B 4, S = T 1,024, causal, bf16 and float32; D 96 causal; D
-     64 non-causal, the encoder's; a ragged S of 1,000) at the attention
+     64 non-causal, the encoder's; a ragged S of 1,000; cross-attention's
+     S 512 over T 1,600, 32 / 8 heads, non-causal, bf16 and float32) at the attention
      bars, checks that two calls of the dk/dv and dq kernels at the
      training shape are equal (no atomics), and times each by CUDA events
      and alone in a CUDA graph beside the plain version, SDPA's forward
@@ -110,21 +111,31 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      more step; 8c holds the step with kernels against the same step with
      the plain versions on the card (the widths cut to 2 layers, 2 steps);
      8d saves, restores (torch.equal) and resumes the smoke config's
-     training;
+     training; 8e trains each family through ``build_train_step`` at its
+     published widths (xlstm-350m and seamless-m4t-medium whole,
+     llama-3.2-vision-11b cut to 5 of 40 layers and jamba-v0.1-52b to 2 of
+     32, so that the float32 state fits the card; seed 0, bf16 compute, 2
+     micro-batches, 3 steps on the port's pipeline) with exact launch
+     counts, finite losses, grad_norm > 0 and moved parameters, reports ms
+     a step, tokens/s, MFU, the bound and peak memory, profiles one more
+     step, and holds vision's step at 4 layers with the kernels against
+     the plain versions as 8c does;
 
 and prints the kernel table and, as its last line,
 ``{"ok": true, "device": {...}}``. Every check raises on failure. It
 exits non-zero, printing no result, when no card is available or when
 ``src/repro_torch`` is missing. Each main path reads its own launch
 counts: the scheduler's (phases 2 and 3), the serving path's (phase 5b),
-each family's serve (phase 7) and the training path's (phase 8b), every
-count set to 0 just before and read just after.
+each family's serve (phase 7), the training path's (phase 8b) and each
+family's training step (phase 8e), every count set to 0 just before and
+read just after.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -231,6 +242,22 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = "llama3.2-3b", 8,
 TRAIN_CUT_LAYERS, TRAIN_CUT_STEPS = 2, 2
 UPDATE_REL_TOL = 0.25
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+# Phase 8e: the families' training steps at their published widths, f32
+# master weights from seed 0, bf16 compute, AdamW(warmup 2), 2
+# micro-batches, FAMILY_TRAIN_STEPS steps (the first warms up) on the
+# port's pipeline: (label, arch, layers kept (None: whole), batch, seq).
+# Depth is cut only where one 80 GB card cannot hold the f32 state (16
+# bytes a parameter: weights, gradients, m, v): vision keeps 5 of 40
+# layers (the cross layer is layer 3), jamba 2 of 32 (SSD + MLP, SSD +
+# 16-expert MoE; 4 layers would need 102 GiB of state).
+FAMILY_TRAIN = (
+    ("xlstm", "xlstm-350m", None, 4, 256),
+    ("seamless", "seamless-m4t-medium", None, 4, 256),
+    ("vision", "llama-3.2-vision-11b", 5, 4, 512),
+    ("jamba", "jamba-v0.1-52b", 2, 4, 512),
+)
+FAMILY_TRAIN_STEPS = 3
+VISION_CUT_LAYERS = 4  # 8e's kernels-against-plain arm: the fewest layers holding the cross layer
 
 
 def emit(tag: str, **fields) -> None:
@@ -433,6 +460,22 @@ def cpm_ptxas(log: str) -> list[dict]:
     return out
 
 
+def device_rows(prof) -> list[tuple[str, float, int]]:
+    """(name, device us, count) of each device-side event name (kernels,
+    copies, memsets) of a finished torch.profiler run, summed straight from
+    its Kineto events: ``key_averages()`` builds a Python object per event
+    and takes minutes over the 10^5-10^6 kernels of a step of xlstm's time
+    loop."""
+    from torch.autograd import DeviceType
+
+    sums: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return [(name, us, n) for name, (us, n) in sums.items()]
+
+
 def profile_run(label: str, fn, wall_unprofiled: float) -> None:
     """Run ``fn`` under torch.profiler and emit device time per kernel
     name (top 8), the total, the number of device kernels, and the busy
@@ -440,7 +483,6 @@ def profile_run(label: str, fn, wall_unprofiled: float) -> None:
     profiler). Prints "not measured" fields when the profiler records no
     device time on this machine."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -450,31 +492,20 @@ def profile_run(label: str, fn, wall_unprofiled: float) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
 
-    def dev_us(e):
-        if hasattr(e, "self_device_time_total"):
-            return e.self_device_time_total
-        return e.self_cuda_time_total
-
-    # Device-side rows only (kernels, copies): a host op's row repeats the
-    # time of the kernels it launched.
-    rows = [
-        e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and dev_us(e) > 0
-    ]
-    total_us = sum(dev_us(e) for e in rows)
+    rows = device_rows(prof)
+    total_us = sum(us for _, us, _ in rows)
     if not rows:
         emit("profile", run=label, device_time="not measured", wall_s=wall)
         return
-    top = sorted(rows, key=dev_us, reverse=True)[:8]
-    ours = [e for e in rows if any(n in e.key for n in PORT_KERNELS)]
+    top = sorted(rows, key=lambda r: r[1], reverse=True)[:8]
+    ours = [r for r in rows if any(n in r[0] for n in PORT_KERNELS)]
     emit("profile", run=label, wall_profiled_s=wall,
          wall_unprofiled_s=wall_unprofiled, device_s=total_us / 1e6,
          busy_share_of_unprofiled=total_us / 1e6 / wall_unprofiled,
-         device_kernels=sum(e.count for e in rows),
-         top=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, count=e.count)
-              for e in top],
-         port_kernels=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, count=e.count)
-                       for e in ours])
+         device_kernels=sum(n for _, _, n in rows),
+         top=[dict(name=name[:80], device_ms=us / 1e3, count=n) for name, us, n in top],
+         port_kernels=[dict(name=name[:80], device_ms=us / 1e3, count=n)
+                       for name, us, n in ours])
 
 def _larger(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -558,17 +589,6 @@ def decode_bound(torch, q, k, lens: list[int]) -> tuple[float, str]:
     return _larger(nbytes, 4 * H * D * rows, rate)
 
 
-def library_device_ms(torch, fn):
-    """``graph_ms`` of a PyTorch yardstick call, or None, with the reason
-    emitted, when this build of PyTorch refuses it (as :func:`library_ms`;
-    SDPA's backward refuses a CUDA graph at the training shape)."""
-    try:
-        return graph_ms(torch, fn)
-    except RuntimeError as e:
-        emit("library_capture_refused", reason=str(e).splitlines()[0][:200])
-        return None
-
-
 def decode_ptxas(log: str) -> list[dict]:
     """Registers and spills of each decode instantiation (split kernel by
     dtype and group heads GM, and the combine kernel by dtype), from
@@ -649,7 +669,7 @@ def attention_kernels(np, torch) -> dict:
             # every decode row, the bf16 flash rows.
             dev = graph_ms(torch, kern)
             extra.update(device_ms=dev, device_share_of_bound=b[0] / dev,
-                         library_device_ms=library_device_ms(torch, lib))
+                         library_device_ms=None if lib_ms is None else graph_ms(torch, lib))
             if flops is not None:
                 extra.update(device_tflop_s=flops / dev / 1e9)
         emit("attention", kernel=name, shape=label, max_abs_err=err,
@@ -1301,6 +1321,18 @@ def training_kernels(np, torch) -> dict:
         ("phi3_D96", 4, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 96, True, bf16),
         ("encoder_D64", 4, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, False, bf16),
         ("ragged_S1000", 4, 1000, 1000, 24, 8, 128, True, bf16),
+        # Cross-attention as llama-3.2-vision trains it: 512 tokens over
+        # 1,600 patches (12.5 of dk/dv's 128-key units), G = 4, not causal.
+        ("cross_T1600", 4, 512, 1600, 32, 8, 128, False, bf16),
+        ("cross_T1600", 4, 512, 1600, 32, 8, 128, False, f32),
+        # The calls of 8e's arms, at its micro-batch of B 2: seamless's
+        # encoder and cross layers (256 rows over 256 frames, 16 heads of
+        # 64, not causal) and its decoder (causal); vision's self-attention
+        # (32 / 8 heads of 128, causal) and its cross layer.
+        ("8e_seamless_enc", 2, 256, 256, 16, 16, 64, False, bf16),
+        ("8e_seamless_dec", 2, 256, 256, 16, 16, 64, True, bf16),
+        ("8e_vision_self", 2, 512, 512, 32, 8, 128, True, bf16),
+        ("8e_vision_cross", 2, 512, 1600, 32, 8, 128, False, bf16),
     ]
     for label, B, S, T, H, KV, D, causal, dt in shapes:
         def rn(*shape):
@@ -1353,7 +1385,13 @@ def training_kernels(np, torch) -> dict:
                 lambda: ref.ref_flash_bwd_dq(q, k, v, do, lse, delta, causal)),
         }
         # The yardstick: SDPA's forward (keeping what its backward needs) and
-        # its backward (delta, dq, dk, dv in one call).
+        # its backward (delta, dq, dk, dv in one call). The forward that the
+        # backward differentiates runs on a side stream: autograd runs each
+        # backward node on its forward's stream, and the legacy default
+        # stream cannot join graph_ms's capture. A refused capture fails the
+        # run: it leaves the process on the capture stream with the
+        # allocator still capturing, so that no later empty_cache frees
+        # anything.
         qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         dos = do.transpose(1, 2)
 
@@ -1361,16 +1399,20 @@ def training_kernels(np, torch) -> dict:
             return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
 
         lib_fwd, lib_err = library_ms(torch, sdpa_fwd)
-        lib_fwd_dev = library_device_ms(torch, sdpa_fwd)
-        lib_bwd = lib_bwd_dev = None
+        lib_fwd_dev = lib_bwd = lib_bwd_dev = None
         if lib_fwd is not None:
-            out_s = sdpa_fwd()
+            lib_fwd_dev = graph_ms(torch, sdpa_fwd)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                out_s = sdpa_fwd()
+            torch.cuda.current_stream().wait_stream(side)
 
             def sdpa_bwd():
                 return torch.autograd.grad(out_s, (qs, ks, vs), dos, retain_graph=True)
 
             lib_bwd, lib_err = library_ms(torch, sdpa_bwd)
-            lib_bwd_dev = library_device_ms(torch, sdpa_bwd)
+            lib_bwd_dev = None if lib_bwd is None else graph_ms(torch, sdpa_bwd)
         library = {"flash_attention_lse": (lib_fwd, lib_fwd_dev), "flash_bwd_delta": (None, None),
                    "flash_bwd_dkdv": (lib_bwd, lib_bwd_dev), "flash_bwd_dq": (lib_bwd, lib_bwd_dev)}
         bounds = backward_bounds(torch, q, k, causal)
@@ -1432,6 +1474,90 @@ def plain_attention(ops, ref):
         ops.flash_attention, ops.flash_attention_bwd = saved
 
 
+def train_bound(torch, cfg, n_params: int, n_active: int, B: int, S: int, T: int) -> dict:
+    """Least ms of one train step (8b, 8e): 6 * active parameters * tokens
+    at the bf16 rate, each attention call's forward and backward products
+    (2 + 5 per (query, key) pair; T memory rows for cross and encoder
+    calls) at the bf16 rate, and AdamW's 28 bytes a parameter (read p, g,
+    m, v; write p, m, v in float32) at the HBM rate. The SSD's and the
+    xLSTM's own products (chunk and time mixing) are not counted."""
+    from repro_torch.models.config import layer_kinds
+
+    q = torch.empty((B, S, cfg.n_heads, cfg.head_dim), device="meta")
+    kv = lambda n: torch.empty((B, n, cfg.n_kv_heads, cfg.head_dim), device="meta")  # noqa: E731
+    attn = 0
+    for mixer, _ in layer_kinds(cfg):
+        if mixer in ("attn", "attn_cross"):
+            attn += flash_flops(q, kv(S), True)
+        if mixer in ("cross", "attn_cross"):
+            attn += flash_flops(q, kv(T), False)
+    if cfg.n_enc_layers:
+        qe = torch.empty((B, T, cfg.n_heads, cfg.head_dim), device="meta")
+        attn += cfg.n_enc_layers * flash_flops(qe, kv(T), False)
+    dense = 6 * n_active * B * S
+    parts = dict(dense=1e3 * dense / BF16_OPS_PER_S, attention=1e3 * 3.5 * attn / BF16_OPS_PER_S,
+                 adamw=1e3 * 28 * n_params / HBM_BYTES_PER_S)
+    return dict(step_bound_ms=sum(parts.values()), step_bound_parts_ms=parts,
+                dense_flops=dense)
+
+
+def kernels_vs_plain(np, torch, cfg, batch: int, seq: int, opt_cfg, what: str) -> dict:
+    """The train step with the kernels against the same step with the plain
+    versions on the card (8c, and 8e's vision arm): TRAIN_CUT_STEPS steps
+    from seed 0 on the port's pipeline, each arm from the same weights;
+    the loss and grad_norm within ``max(0.05, 0.02 * n_layers)`` and each
+    leaf's update within UPDATE_REL_TOL of the plain one's. Returns the
+    fields to emit."""
+    from repro_torch.kernels import attention, ops, ref
+    from repro_torch.launch.train import batch_to, data_config, make_pipeline
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import build_train_step, make_train_state
+
+    model = build_model(cfg)
+    data = make_pipeline(data_config(cfg, batch, seq))
+    batches = [batch_to(data.batch_for_step(i), "cuda") for i in range(TRAIN_CUT_STEPS)]
+    step = build_train_step(model, opt_cfg, n_micro=TRAIN_MICRO)
+    arms = {}
+    for arm in ("kernels", "plain"):
+        state = make_train_state(model, 0, device="cuda")
+        if arm == "kernels":
+            init = [t.detach().clone() for t in tree_leaves(state.params)]
+        else:
+            check(all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params), init)),
+                  f"{what}: the two arms start from different weights")
+        before = dict(attention.launches)
+        metrics = []
+        t = time.perf_counter()
+        with plain_attention(ops, ref) if arm == "plain" else contextlib.nullcontext():
+            for b in batches:
+                state, m = step(state, b)
+                metrics.append({k: float(x) for k, x in m.items()})
+        wall = time.perf_counter() - t
+        launched = {k: attention.launches[k] - before[k] for k in before}
+        check((launched["flash_bwd_dkdv"] > 0) == (arm == "kernels"),
+              f"{what} {arm} launched {launched}")
+        arms[arm] = (state.params, metrics, wall)  # m and v go: the plain arm needs the room
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    tol = max(0.05, 0.02 * cfg.n_layers)  # tests/test_models.py:113
+    (sk, mk, wk), (sp, mp, wp) = arms.pop("kernels"), arms.pop("plain")
+    for a, b in zip(mk, mp):
+        for key in ("loss", "grad_norm"):
+            check(abs(a[key] - b[key]) <= tol * (1 + abs(b[key])),
+                  f"{what}: {key} kernels {a[key]} != plain {b[key]} (tol {tol})")
+    rel = []
+    for a, b, p0 in zip(tree_leaves(sk), tree_leaves(sp), init):
+        du, dv = a.detach() - p0, b.detach() - p0
+        rel.append(float((du - dv).norm() / dv.norm().clamp_min(1e-30)))
+    check(max(rel) <= UPDATE_REL_TOL,
+          f"{what}: a leaf's update differs by {max(rel)} (tol {UPDATE_REL_TOL})")
+    return dict(arch=cfg.name, layers=cfg.n_layers, steps=TRAIN_CUT_STEPS, kernels=mk,
+                plain=mp, tol=tol, update_rel_errs=rel, update_rel_tol=UPDATE_REL_TOL,
+                kernels_wall_s=wk, plain_wall_s=wp)
+
+
 def training_phases(np, torch) -> dict:
     """8b. llama3.2-3b trained at its published widths for TRAIN_STEPS
     steps through ``launch/train.py``'s ``train`` (the training main path:
@@ -1443,7 +1569,7 @@ def training_phases(np, torch) -> dict:
 
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.kernels import attention, ops, ref
+    from repro_torch.kernels import attention
     from repro_torch.launch.train import batch_to, data_config, make_pipeline, train
     from repro_torch.models.lm import build_model
     from repro_torch.optim.adamw import AdamWConfig, tree_leaves
@@ -1482,21 +1608,14 @@ def training_phases(np, torch) -> dict:
     n_params = sum(t.numel() for t in tree_leaves(res.state.params))
     tok = TRAIN_BATCH * TRAIN_SEQ
     step_s = float(np.mean(res.step_s[1:]))  # the first step warms up
-    q = torch.empty((TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim), device="meta")
-    attn = 3.5 * L * flash_flops(q, q[:, :, :cfg.n_kv_heads], True)  # 2 + 5 products
-    dense = 6 * n_params * tok
-    adam_bytes = 28 * n_params  # read p, g, m, v; write p, m, v (float32)
-    bound_s = (dense + attn) / BF16_OPS_PER_S + adam_bytes / HBM_BYTES_PER_S
+    bound = train_bound(torch, cfg, n_params, n_params, TRAIN_BATCH, TRAIN_SEQ, 0)
     emit("train_full_width", arch=cfg.name, params=n_params, layers=L, batch=TRAIN_BATCH,
          seq=TRAIN_SEQ, n_micro=TRAIN_MICRO, steps=TRAIN_STEPS, step_s=res.step_s,
          first_step_s=res.step_s[0], ms_per_step=1e3 * step_s, tokens_per_s=tok / step_s,
-         mfu=dense / step_s / BF16_OPS_PER_S, step_bound_ms=1e3 * bound_s,
-         step_bound_parts_ms=dict(dense=1e3 * dense / BF16_OPS_PER_S,
-                                  attention=1e3 * attn / BF16_OPS_PER_S,
-                                  adamw=1e3 * adam_bytes / HBM_BYTES_PER_S),
-         share_of_bound=bound_s / step_s, peak_gib=peak / 2**30, losses=losses,
-         grad_norms=gnorms, lrs=[m["lr"] for m in res.metrics],
-         min_leaf_max_move=min(moved), launches=launches, log=log)
+         mfu=bound.pop("dense_flops") / step_s / BF16_OPS_PER_S,
+         share_of_bound=bound["step_bound_ms"] / (1e3 * step_s), peak_gib=peak / 2**30,
+         losses=losses, grad_norms=gnorms, lrs=[m["lr"] for m in res.metrics],
+         min_leaf_max_move=min(moved), launches=launches, log=log, **bound)
 
     # Where a step's device time goes: one more step under the profiler.
     step_fn = build_train_step(build_model(cfg), opt_cfg, n_micro=TRAIN_MICRO)
@@ -1514,45 +1633,8 @@ def training_phases(np, torch) -> dict:
 
     # -- 8c. the step with kernels against the plain versions, same card -----
     cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
-    model = build_model(cut)
-    data = make_pipeline(data_config(cut, TRAIN_BATCH, TRAIN_SEQ))
-    batches = [batch_to(data.batch_for_step(i), "cuda") for i in range(TRAIN_CUT_STEPS)]
-    step = build_train_step(model, opt_cfg, n_micro=TRAIN_MICRO)
-    arms = {}
-    for arm in ("kernels", "plain"):
-        state = make_train_state(model, 0, device="cuda")
-        if arm == "kernels":
-            init = [t.detach().clone() for t in tree_leaves(state.params)]
-        else:
-            check(all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params), init)),
-                  "8c: the two arms start from different weights")
-        before = dict(attention.launches)
-        metrics = []
-        t = time.perf_counter()
-        with plain_attention(ops, ref) if arm == "plain" else contextlib.nullcontext():
-            for b in batches:
-                state, m = step(state, b)
-                metrics.append({k: float(x) for k, x in m.items()})
-        wall = time.perf_counter() - t
-        launched = {k: attention.launches[k] - before[k] for k in before}
-        check((launched["flash_bwd_dkdv"] > 0) == (arm == "kernels"), f"8c {arm} launched {launched}")
-        arms[arm] = (state, metrics, wall)
-    tol = max(0.05, 0.02 * cut.n_layers)  # tests/test_models.py:113
-    (sk, mk, wk), (sp, mp, wp) = arms["kernels"], arms["plain"]
-    for a, b in zip(mk, mp):
-        for key in ("loss", "grad_norm"):
-            check(abs(a[key] - b[key]) <= tol * (1 + abs(b[key])),
-                  f"8c: {key} kernels {a[key]} != plain {b[key]} (tol {tol})")
-    rel = []
-    for a, b, p0 in zip(tree_leaves(sk.params), tree_leaves(sp.params), init):
-        du, dv = a.detach() - p0, b.detach() - p0
-        rel.append(float((du - dv).norm() / dv.norm().clamp_min(1e-30)))
-    check(max(rel) <= UPDATE_REL_TOL, f"8c: a leaf's update differs by {max(rel)} (tol {UPDATE_REL_TOL})")
-    emit("train_card_equals_plain", arch=cut.name, layers=cut.n_layers,
-         cut=f"{cfg.n_layers} -> {cut.n_layers} layers, widths as published",
-         steps=TRAIN_CUT_STEPS, kernels=mk, plain=mp, tol=tol, update_rel_errs=rel,
-         update_rel_tol=UPDATE_REL_TOL, kernels_wall_s=wk, plain_wall_s=wp)
-    del arms, sk, sp, init, batches, state
+    emit("train_card_equals_plain", cut=f"{cfg.n_layers} -> {cut.n_layers} layers, widths as published",
+         **kernels_vs_plain(np, torch, cut, TRAIN_BATCH, TRAIN_SEQ, opt_cfg, "8c"))
     torch.cuda.empty_cache()
 
     # -- 8d. checkpoint restart on the smoke config ----------------------------
@@ -1583,6 +1665,111 @@ def training_phases(np, torch) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     emit("train_phase", seconds=time.perf_counter() - t_phase, launches=launches)
     return launches
+
+
+def family_training(np, torch) -> dict:
+    """8e. Each family's training step at its published widths (FAMILY_TRAIN)
+    through ``build_train_step``: FAMILY_TRAIN_STEPS steps on the port's
+    pipeline, every count set to 0 just before and read just after (exact:
+    2 forwards with lse and one of each backward kernel per attention call
+    a micro-batch), finite losses, grad_norm > 0, every leaf moved; ms a
+    step, tokens/s, MFU (active parameters only), the bound and peak
+    memory, then one more step profiled. The vision arm also runs cut to
+    VISION_CUT_LAYERS layers with the kernels against the plain versions
+    (cross-attention's backward through the kernels inside a step).
+    Returns the counts by arm."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch.train import batch_to, data_config, make_pipeline
+    from repro_torch.models.config import layer_kinds
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.runtime.steps import build_train_step, make_train_state
+
+    t_phase = time.perf_counter()
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=FAMILY_TRAIN_STEPS)
+    counts = {}
+    for label, arch, layers, B, S in FAMILY_TRAIN:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        model = build_model(cfg)
+        step = build_train_step(model, opt_cfg, n_micro=TRAIN_MICRO)
+        dcfg = data_config(cfg, B, S)
+        data = make_pipeline(dcfg)
+        batches = [batch_to(data.batch_for_step(i), "cuda") for i in range(FAMILY_TRAIN_STEPS + 1)]
+        # The last arm's state can sit in reference cycles (autograd and
+        # checkpoint frames) until the collector runs: free it before the
+        # cache is emptied.
+        gc.collect()
+        torch.cuda.empty_cache()
+        at_start = dict(allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                        reserved_gib=torch.cuda.memory_reserved() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state = make_train_state(model, 0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        leaves = tree_leaves(state.params)
+        n_params = sum(x.numel() for x in leaves)
+        n_moe = sum(ffn == "moe" for _, ffn in layer_kinds(cfg))
+        n_active = n_params - n_moe * (cfg.n_experts - cfg.experts_per_token) * 3 * cfg.d_model * cfg.d_ff
+        # Every leaf moved: a strided sample of each (at most ~1 M entries),
+        # since a second copy of jamba's weights would not fit beside its state.
+        strides = [max(1, x.numel() // 2**20) for x in leaves]
+        samples = [x.detach().reshape(-1)[::k].clone() for x, k in zip(leaves, strides)]
+        for key in attention.launches:
+            attention.launches[key] = 0
+        metrics, step_s = [], []
+        for b in batches[:FAMILY_TRAIN_STEPS]:
+            t = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})  # reads the device
+            step_s.append(time.perf_counter() - t)
+        launches = dict(attention.launches)
+        peak = torch.cuda.max_memory_allocated()
+        calls = attention_calls(cfg)[0] * TRAIN_MICRO * FAMILY_TRAIN_STEPS
+        want = {key: 0 for key in launches}
+        want["flash_attention_lse"] = 2 * calls  # forward + recompute
+        want.update({n: calls for n in BWD_KERNELS})
+        check(launches == want, f"8e {label}: launches {launches}, expected {want}")
+        losses = [m["loss"] for m in metrics]
+        gnorms = [m["grad_norm"] for m in metrics]
+        check(all(np.isfinite(losses)), f"8e {label}: losses {losses}")
+        check(all(np.isfinite(gnorms)) and min(gnorms) > 0, f"8e {label}: grad norms {gnorms}")
+        moved = [int((x.detach().reshape(-1)[::k] != s0).sum()) for x, k, s0 in
+                 zip(tree_leaves(state.params), strides, samples)]
+        check(min(moved) > 0, f"8e {label}: a parameter leaf did not move: {moved}")
+        del samples
+        step_mean = float(np.mean(step_s[1:]))
+        bound = train_bound(torch, cfg, n_params, n_active, B, S, dcfg.memory_len)
+        emit("family_train", arm=label, arch=cfg.name, layers=cfg.n_layers,
+             published_layers=full.n_layers, enc_layers=cfg.n_enc_layers, params=n_params,
+             active_params=n_active, batch=B, seq=S, memory_rows=dcfg.memory_len,
+             n_micro=TRAIN_MICRO, steps=FAMILY_TRAIN_STEPS, init_s=init_s, step_s=step_s,
+             ms_per_step=1e3 * step_mean, tokens_per_s=B * S / step_mean,
+             mfu=bound.pop("dense_flops") / step_mean / BF16_OPS_PER_S,
+             share_of_bound=bound["step_bound_ms"] / (1e3 * step_mean), peak_gib=peak / 2**30,
+             state_gib=16 * n_params / 2**30, losses=losses, grad_norms=gnorms,
+             lrs=[m["lr"] for m in metrics], min_leaf_sample_moved=min(moved),
+             launches=launches, memory_at_start=at_start, **bound)
+        counts[label] = launches
+
+        def one_step():
+            step(state, batches[-1])
+
+        profile_run(f"train_{label}", one_step, step_mean)
+        del state, batches, leaves, model, step
+        if label == "vision":
+            cut = dataclasses.replace(full, n_layers=VISION_CUT_LAYERS)
+            check(any(mixer == "cross" for mixer, _ in layer_kinds(cut)),
+                  "8e: the vision cut holds no cross layer")
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit("family_train_equals_plain", arm=label,
+                 cut=f"{full.n_layers} -> {cut.n_layers} layers, widths as published",
+                 **kernels_vs_plain(np, torch, cut, B, S, opt_cfg, "8e vision"))
+    emit("family_train_phase", seconds=time.perf_counter() - t_phase, launches=counts)
+    return counts
 
 
 def production_scenario(np, torch, stream) -> None:
@@ -2086,6 +2273,7 @@ def main() -> int:
     train_launches = training_phases(np, torch)
     for name in ("flash_attention_lse",) + BWD_KERNELS:
         table[name]["launches"] = train_launches[name]
+    family_training(np, torch)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],

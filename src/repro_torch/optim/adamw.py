@@ -10,11 +10,12 @@ The operations and their order are the JAX package's
     returns the same objects. A functional update would hold a second copy
     of the parameters and both moments.
   * A leaf of more than ``SLICE_ELEMENTS`` elements is updated in slices
-    along its leading axis (the repeats of a stacked layer leaf, rows of
-    an embedding table), so the float32 temporaries of the formula are a
-    slice's and not the leaf's (at llama3.2-3b's widths a stacked MLP
-    leaf is 2.8 GB beside 51 GB of state). The operation is elementwise,
-    so the values are the same.
+    along its leading axes (the repeats of a stacked layer leaf, rows of
+    an embedding table; the experts of a MoE leaf stacked over one
+    repeat), so the float32 temporaries of the formula are a slice's and
+    not the leaf's (at llama3.2-3b's widths a stacked MLP leaf is 2.8 GB
+    beside 51 GB of state, at jamba's one expert leaf 3.8 GB). The
+    operation is elementwise, so the values are the same.
 
 The step count, the learning rate and the bias corrections are float32
 scalars computed on the host as the reference computes them in float32;
@@ -120,12 +121,15 @@ def adamw_init(params: Params) -> dict[str, Any]:
 
 
 def _slices(t: torch.Tensor) -> list:
-    """Views of ``t`` along its leading axis of at most SLICE_ELEMENTS
-    elements each (one view, ``t`` itself, for a small leaf)."""
+    """Views of ``t`` of at most SLICE_ELEMENTS elements each, taken along
+    its leading axis, and along the next one within a leading row that is
+    larger than that (one view, ``t`` itself, for a small leaf)."""
     if t.numel() <= SLICE_ELEMENTS or t.dim() == 0:
         return [t]
-    rows = max(1, SLICE_ELEMENTS // (t.numel() // t.shape[0]))
-    return list(torch.split(t, rows, dim=0))
+    per_row = t.numel() // t.shape[0]
+    if per_row > SLICE_ELEMENTS:
+        return [s for row in torch.unbind(t, dim=0) for s in _slices(row)]
+    return list(torch.split(t, SLICE_ELEMENTS // per_row, dim=0))
 
 
 @torch.no_grad()
