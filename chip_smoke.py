@@ -120,15 +120,31 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      a step, tokens/s, MFU, the bound and peak memory, profiles one more
      step, and holds vision's step at 4 layers with the kernels against
      the plain versions as 8c does;
+  9. runs the multi-device stack on the card's 1 x 1 mesh (one NCCL rank;
+     the machine has one card, so the mesh path is held equal to its
+     one-device result): 9a builds ``make_local_mesh()``, checks that
+     ``make_production_mesh()`` refuses one rank and prints llama3.2-3b's
+     state leaves by placement and its parameters' specs on a (16, 16)
+     mesh shape; 9b trains llama3.2-3b through ``train(mesh=...)`` at 8b's
+     shape with exact launch counts, its losses and grad norms within 1e-3
+     relative of 8b's and each leaf's sampled update within 8c's 0.25 of
+     8b's, reports whether step 0's loss equals 8b's bit for bit, ms a
+     step, tokens/s, MFU, busy share and peak memory beside 8b's, and the
+     top host costs of a step by cProfile; 9c serves llama3.2-3b (4 x 64
+     tokens, 16 generated) through ``serve_model(mesh=...)`` and without a
+     mesh: tokens equal, the last prompt logits within max(0.05, 0.02 *
+     n_layers), exact launch counts for each route, ms a decode step
+     each; 9d records stage 2's card and chunk counts;
 
 and prints the kernel table and, as its last line,
 ``{"ok": true, "device": {...}}``. Every check raises on failure. It
 exits non-zero, printing no result, when no card is available or when
 ``src/repro_torch`` is missing. Each main path reads its own launch
 counts: the scheduler's (phases 2 and 3), the serving path's (phase 5b),
-each family's serve (phase 7), the training path's (phase 8b) and each
-family's training step (phase 8e), every count set to 0 just before and
-read just after.
+each family's serve (phase 7), the training path's (phase 8b), each
+family's training step (phase 8e) and the mesh path's training and
+serving (phases 9b and 9c), every count set to 0 just before and read
+just after.
 """
 
 from __future__ import annotations
@@ -241,6 +257,17 @@ ATTN_ROW_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 1e-2}
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = "llama3.2-3b", 8, 1024, 2, 4
 TRAIN_CUT_LAYERS, TRAIN_CUT_STEPS = 2, 2
 UPDATE_REL_TOL = 0.25
+# 8b keeps a strided sample of each leaf's update (at most this many
+# entries a leaf) for 9b to compare with.
+UPDATE_SAMPLE = 1 << 20
+# Phase 9: the mesh path on a 1 x 1 mesh. 9b trains at 8b's shape and is
+# held to 8d's 1e-3 relative on losses and grad norms (the embedding
+# gradient's index_put_ adds with atomics, so two runs are not bit-equal)
+# and to 8c's UPDATE_REL_TOL on each leaf's sampled update; 9c serves
+# MESH_BATCH x MESH_PROMPT tokens and MESH_GEN generated through both
+# routes.
+MESH_REL_TOL = 1e-3
+MESH_BATCH, MESH_PROMPT, MESH_GEN = 4, 64, 16
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # Phase 8e: the families' training steps at their published widths, f32
 # master weights from seed 0, bf16 compute, AdamW(warmup 2), 2
@@ -476,12 +503,12 @@ def device_rows(prof) -> list[tuple[str, float, int]]:
     return [(name, us, n) for name, (us, n) in sums.items()]
 
 
-def profile_run(label: str, fn, wall_unprofiled: float) -> None:
+def profile_run(label: str, fn, wall_unprofiled: float) -> dict:
     """Run ``fn`` under torch.profiler and emit device time per kernel
     name (top 8), the total, the number of device kernels, and the busy
     share of ``wall_unprofiled`` (the same work's wall time without the
-    profiler). Prints "not measured" fields when the profiler records no
-    device time on this machine."""
+    profiler); returns what it emitted. Prints "not measured" fields when
+    the profiler records no device time on this machine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -495,17 +522,20 @@ def profile_run(label: str, fn, wall_unprofiled: float) -> None:
     rows = device_rows(prof)
     total_us = sum(us for _, us, _ in rows)
     if not rows:
-        emit("profile", run=label, device_time="not measured", wall_s=wall)
-        return
+        fields = dict(run=label, device_time="not measured", wall_s=wall)
+        emit("profile", **fields)
+        return fields
     top = sorted(rows, key=lambda r: r[1], reverse=True)[:8]
     ours = [r for r in rows if any(n in r[0] for n in PORT_KERNELS)]
-    emit("profile", run=label, wall_profiled_s=wall,
-         wall_unprofiled_s=wall_unprofiled, device_s=total_us / 1e6,
-         busy_share_of_unprofiled=total_us / 1e6 / wall_unprofiled,
-         device_kernels=sum(n for _, _, n in rows),
-         top=[dict(name=name[:80], device_ms=us / 1e3, count=n) for name, us, n in top],
-         port_kernels=[dict(name=name[:80], device_ms=us / 1e3, count=n)
-                       for name, us, n in ours])
+    fields = dict(run=label, wall_profiled_s=wall,
+                  wall_unprofiled_s=wall_unprofiled, device_s=total_us / 1e6,
+                  busy_share_of_unprofiled=total_us / 1e6 / wall_unprofiled,
+                  device_kernels=sum(n for _, _, n in rows),
+                  top=[dict(name=name[:80], device_ms=us / 1e3, count=n) for name, us, n in top],
+                  port_kernels=[dict(name=name[:80], device_ms=us / 1e3, count=n)
+                                for name, us, n in ours])
+    emit("profile", **fields)
+    return fields
 
 def _larger(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1603,6 +1633,11 @@ def training_phases(np, torch) -> dict:
     init = build_model(cfg).init(0, device="cuda")
     moved = [float((a.detach() - b).abs().max()) for a, b in
              zip(tree_leaves(res.state.params), tree_leaves(init))]
+    # What 9b compares with, kept on the host: each leaf's sampled update.
+    kept = dict(losses=[m["loss"] for m in res.metrics],
+                grad_norms=[m["grad_norm"] for m in res.metrics],
+                updates=update_samples(torch, res.state.params, init),
+                step_s=list(res.step_s), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del init
     check(min(moved) > 0, f"a parameter leaf did not move: {moved}")
     n_params = sum(t.numel() for t in tree_leaves(res.state.params))
@@ -1627,7 +1662,7 @@ def training_phases(np, torch) -> dict:
     def one_step():
         step_fn(state, batch)
 
-    profile_run("train_step", one_step, step_s)
+    kept["profile"] = profile_run("train_step", one_step, step_s)
     del state, batch
     torch.cuda.empty_cache()
 
@@ -1664,7 +1699,277 @@ def training_phases(np, torch) -> dict:
          uninterrupted_loss=l_whole, loss_abs_diff=abs(l_res - l_whole))
     shutil.rmtree(d, ignore_errors=True)
     emit("train_phase", seconds=time.perf_counter() - t_phase, launches=launches)
-    return launches
+    return launches, kept
+
+
+def update_samples(torch, params, init) -> list:
+    """Each leaf's update (params - init) at every k-th entry, k chosen so
+    that at most UPDATE_SAMPLE entries are kept, as float32 CPU tensors (a
+    DTensor leaf by its local shard: the whole leaf on a 1 x 1 mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    out = []
+    for a, b in zip(tree_leaves(params), tree_leaves(init)):
+        a = a.to_local() if isinstance(a, DTensor) else a
+        k = max(1, -(-a.numel() // UPDATE_SAMPLE))
+        out.append((a.detach().reshape(-1)[::k].float() - b.reshape(-1)[::k].float()).cpu())
+    return out
+
+
+def gc_pauses(fn) -> dict:
+    """The garbage collector's passes during one call of ``fn``: their
+    count by generation and their host seconds."""
+    import gc
+
+    t0, gens, total = [0.0], [0, 0, 0], [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            total[0] += time.perf_counter() - t0[0]
+            gens[info["generation"]] += 1
+
+    gc.callbacks.append(cb)
+    try:
+        fn()
+    finally:
+        gc.callbacks.remove(cb)
+    return dict(collections_by_generation=gens, seconds=total[0])
+
+
+def host_costs(fn, top: int = 12) -> list[dict]:
+    """The ``top`` functions by their own host time over one call of
+    ``fn`` under cProfile (which slows every Python call; the shares, not
+    the times, are what it shows). cProfile sees this thread only: the
+    backward pass runs on autograd's device thread and is not in it."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    st = pstats.Stats(prof)
+    total = sum(v[2] for v in st.stats.values())
+    rows = sorted(st.stats.items(), key=lambda kv: kv[1][2], reverse=True)[:top]
+    return [dict(function=f"{Path(f).name}:{line}({name})", calls=v[1], own_s=v[2],
+                 own_share=v[2] / total)
+            for (f, line, name), v in rows]
+
+
+def mesh_serve_kernels(torch, cfg) -> dict:
+    """9c's kernel shapes against the plain versions (phase 5a holds the
+    serving path's, 4 x 512 + 32): the prefill's flash forward at S = T =
+    MESH_PROMPT, causal, and the decode kernel over 9c's cache of
+    MESH_PROMPT + MESH_GEN + 1 rows at every kv_len 1 .. T - 1, an int as
+    the serve step passes it; bf16, at ATTN_TOL and ATTN_ROW_TOL. Returns
+    each kernel's (max abs error, max row-relative error)."""
+    from repro_torch.kernels import attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    B, S, H, KV, D = MESH_BATCH, MESH_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    q, k, v = rn((B, S, H, D)), rn((B, S, KV, D)), rn((B, S, KV, D))
+    out = {"flash_attention": check_attention(
+        torch, "flash_attention", attention.flash_attention(q, k, v, True),
+        ref.ref_flash_attention(q, k, v, True), bf16, f"9c prefill {(B, S, S, H, KV, D)}")}
+    T = MESH_PROMPT + MESH_GEN + 1
+    q, k, v = rn((B, H, D)), rn((B, T, KV, D)), rn((B, T, KV, D))
+    errs = [check_attention(torch, "decode_attention", attention.decode_attention(q, k, v, n),
+                            ref.ref_decode_attention(q, k, v, n), bf16,
+                            f"9c decode {(B, H, KV, D, T)} kv_len {n}")
+            for n in range(1, T)]
+    out["decode_attention"] = (max(e for e, _ in errs), max(r for _, r in errs))
+    return out
+
+
+def mesh_phases(np, torch, kept8: dict) -> dict:
+    """9. The multi-device stack on the card's 1 x 1 mesh: 9a the mesh and
+    the sharding tables, 9b llama3.2-3b trained through ``train(mesh=...)``
+    at 8b's shape (the mesh training path: every count set to 0 just
+    before, read just after), held against 8b's losses, grad norms and
+    sampled updates; 9c the full-width serve through ``serve_model(mesh=
+    ...)`` against the route without a mesh (its own counts), and the
+    kernels held against their plain versions at 9c's shapes; 9d the
+    stage-2 split's card and chunk counts. Returns each attention kernel's
+    max abs error at 9c's shapes."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.core import vectorized
+    from repro_torch.distribution.sharding import (
+        activation_rules,
+        batch_sharding,
+        distribute,
+        state_sharding,
+    )
+    from repro_torch.kernels import attention
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.launch.train import batch_to, data_config, make_pipeline, train
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.runtime.steps import build_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+
+    # -- 9a. the mesh: one rank of NCCL on the card ----------------------------
+    mesh = make_local_mesh()
+    check(tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+          and mesh.device_type == "cuda", f"local mesh {mesh}")
+    try:
+        make_production_mesh()
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and refused.startswith("need 256 devices"),
+          f"the production mesh was not refused with one rank: {refused}")
+
+    # -- 9b. training under the mesh: every count to 0 just before -----------
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for key in attention.launches:
+        attention.launches[key] = 0
+    log = []
+    res = train(TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, smoke=False,
+                device="cuda", log=log.append, opt_cfg=opt_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    train_launches = dict(attention.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {key: 0 for key in train_launches}
+    want["flash_attention_lse"] = 2 * L * TRAIN_MICRO * TRAIN_STEPS
+    want.update({n: L * TRAIN_MICRO * TRAIN_STEPS for n in BWD_KERNELS})
+    check(train_launches == want, f"9b launches {train_launches}, expected {want}")
+    losses = [m["loss"] for m in res.metrics]
+    gnorms = [m["grad_norm"] for m in res.metrics]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, kept8["losses"]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(gnorms, kept8["grad_norms"]))
+    check(loss_rel <= MESH_REL_TOL, f"9b losses {losses} against 8b's {kept8['losses']}")
+    check(gnorm_rel <= MESH_REL_TOL, f"9b grad norms {gnorms} against 8b's {kept8['grad_norms']}")
+    init = build_model(cfg).init(0, device="cuda")
+    ups = update_samples(torch, res.state.params, init)
+    del init
+    rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+           for a, b in zip(ups, kept8["updates"])]
+    check(max(rel) <= UPDATE_REL_TOL, f"9b updates against 8b's: {rel}")
+
+    # 9a's tables, read off the placed state: leaves by placement on the
+    # 1 x 1 mesh, and the parameters' specs on a (16, 16) mesh shape.
+    by_placement: dict = {}
+    for _, leaf in flatten_with_paths(res.state):
+        key = str(tuple(leaf.placements)) if hasattr(leaf, "placements") else "host"
+        by_placement[key] = by_placement.get(key, 0) + 1
+
+    class Pod:  # the production mesh's axis sizes, without its 256 ranks
+        shape = {"data": 16, "model": 16}
+        axis_names = ("data", "model")
+
+    specs = {p: tuple(s.spec) for p, s in flatten_with_paths(state_sharding(res.state, Pod()))
+             if p.startswith("[<flat index 0>]")}
+    emit("mesh_tables", arch=cfg.name, mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         production_refused=refused, leaves_by_placement=by_placement,
+         param_specs_16x16={p: [list(a) if isinstance(a, tuple) else a for a in sp]
+                            for p, sp in specs.items()})
+
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    step_list = list(res.step_s)
+    step_s = float(np.mean(step_list[1:]))  # the first step warms up
+    step8 = float(np.mean(kept8["step_s"][1:]))
+    n_params = sum(t.numel() for t in tree_leaves(res.state.params))
+    bound = train_bound(torch, cfg, n_params, n_params, TRAIN_BATCH, TRAIN_SEQ, 0)
+    flops = bound.pop("dense_flops")
+
+    step_fn = build_train_step(build_model(cfg), opt_cfg, n_micro=TRAIN_MICRO)
+    batch = batch_to(make_pipeline(data_config(cfg, TRAIN_BATCH, TRAIN_SEQ))
+                     .batch_for_step(TRAIN_STEPS), "cuda")
+    batch = distribute(batch, batch_sharding(batch, mesh))
+    state = res.state
+    del res
+
+    def one_step():
+        with activation_sharding(activation_rules(mesh)):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+
+    prof = profile_run("train_step_mesh", one_step, step_s)
+    costs = host_costs(one_step)
+    gc_step = gc_pauses(one_step)
+    emit("train_mesh", arch=cfg.name, mesh="1x1", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         n_micro=TRAIN_MICRO, steps=TRAIN_STEPS, step_s=step_list, step_s_8b=kept8["step_s"],
+         ms_per_step=1e3 * step_s, ms_per_step_8b=1e3 * step8,
+         tokens_per_s=tok / step_s, tokens_per_s_8b=tok / step8,
+         mfu=flops / step_s / BF16_OPS_PER_S, mfu_8b=flops / step8 / BF16_OPS_PER_S,
+         busy_share=prof.get("busy_share_of_unprofiled"),
+         busy_share_8b=kept8["profile"].get("busy_share_of_unprofiled"),
+         peak_gib=peak, peak_gib_8b=kept8["peak_gib"],
+         losses=losses, losses_8b=kept8["losses"], grad_norms=gnorms,
+         grad_norms_8b=kept8["grad_norms"], loss_max_rel=loss_rel, grad_norm_max_rel=gnorm_rel,
+         step0_loss_bit_equal=losses[0] == kept8["losses"][0],
+         update_rel_max=max(rel), update_rel_mean=float(np.mean(rel)),
+         launches=train_launches, host_costs=costs, gc_one_step=gc_step, log=log)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9c. serving under the mesh against the route without one -------------
+    model = build_model(cfg)
+    params = model.init(0, device="cuda", dtype=torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT))).cuda()
+    out, serve_launches = {}, {}
+    for route, m in (("mesh", mesh), ("plain", None)):
+        for k in attention.launches:
+            attention.launches[k] = 0
+        out[route] = serve_model(model, params, prompts, MESH_GEN, mesh=m)
+        torch.cuda.synchronize()
+        serve_launches[route] = dict(attention.launches)
+        want = {k: 0 for k in attention.launches}
+        want["flash_attention"] = 2 * L  # the prefill step's warm-up and timed call
+        want["decode_attention"] = (MESH_PROMPT + MESH_GEN - 1) * L
+        check(serve_launches[route] == want,
+              f"9c {route} launches {serve_launches[route]}, expected {want}")
+        check(out[route].all_finite, f"9c {route}: a logit is not finite")
+    tol = max(0.05, 0.02 * L)
+    a, b = out["mesh"].prompt_logits.float(), out["plain"].prompt_logits.float()
+    err = float((a - b).abs().max())
+    check(torch.equal(out["mesh"].tokens, out["plain"].tokens), "9c: the mesh route's tokens differ")
+    check(err <= tol, f"9c: last prompt logits differ by {err} (tol {tol})")
+    # Both routes launch the same kernels, so their agreement says nothing of
+    # the kernels at 9c's shapes: hold them against the plain versions.
+    kern9 = mesh_serve_kernels(torch, cfg)
+    # A short serve: two prefills of 4 tokens, 4 prompt steps and 1 generated.
+    step_cost = host_costs(lambda: serve_model(model, params, prompts[:, :4], 2, mesh=mesh), 8)
+    emit("serve_mesh", arch=cfg.name, mesh="1x1", batch=MESH_BATCH, prompt=MESH_PROMPT,
+         gen=MESH_GEN, tokens_equal=True, prompt_logits_max_abs_err=err, tol=tol,
+         ms_per_decode_step=out["mesh"].ms_per_step,
+         ms_per_decode_step_plain=out["plain"].ms_per_step,
+         prefill_s=out["mesh"].prefill_s, prefill_s_plain=out["plain"].prefill_s,
+         launches=serve_launches["mesh"], launches_plain=serve_launches["plain"],
+         kernels_at_9c_shapes={n: dict(max_abs_err=e, max_row_rel_err=r)
+                           for n, (e, r) in kern9.items()},
+         host_costs_short_serve=step_cost)
+    del params, out
+    torch.cuda.empty_cache()
+
+    # -- 9d. stage 2's split over the local cards ---------------------------
+    devs = vectorized._stage2_devices(torch.device("cuda"))
+    check(len(devs) == torch.cuda.device_count(), f"stage 2 splits over {devs}")
+    emit("stage2_split", cards=torch.cuda.device_count(), chunks=len(devs))
+    dist.destroy_process_group()
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase)
+    return {n: e for n, (e, _) in kern9.items()}
 
 
 def family_training(np, torch) -> dict:
@@ -2270,10 +2575,15 @@ def main() -> int:
 
     # -- 8. the training path: llama3.2-3b trained at full width --------------
     table.update(training_kernels(np, torch))
-    train_launches = training_phases(np, torch)
+    train_launches, kept8 = training_phases(np, torch)
     for name in ("flash_attention_lse",) + BWD_KERNELS:
         table[name]["launches"] = train_launches[name]
     family_training(np, torch)
+
+    # -- 9. the multi-device stack on the card's 1 x 1 mesh -------------------
+    for name, err in mesh_phases(np, torch, kept8).items():
+        table[name]["max_abs_err"] = max(table[name]["max_abs_err"], err)
+    del kept8
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],

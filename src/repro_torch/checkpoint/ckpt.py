@@ -17,6 +17,12 @@ tensor is written as float32 (numpy has no bfloat16 of its own), which
 holds its values exactly; ``restore`` gives each leaf the type and device
 of the matching leaf of ``tree_like``.
 
+Under a mesh a DTensor leaf is written whole (``full_tensor()``, a
+collective: every rank of its mesh takes part), as ``np.asarray`` of a
+sharded JAX array gathers it, so the files do not depend on the mesh;
+``restore`` places each leaf as the matching DTensor of ``tree_like`` is
+placed.
+
 Fault-tolerance contract: a checkpoint is visible only after its LATEST
 pointer is renamed into place, so a crash mid-write never corrupts
 restart state.
@@ -32,8 +38,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-__all__ = ["save", "restore", "latest_step", "flatten_with_paths"]
+__all__ = ["save", "restore", "latest_step", "flatten_with_paths", "unflatten"]
 
 
 def _children(tree: Any) -> list[tuple[str, Any]] | None:
@@ -62,23 +69,25 @@ def flatten_with_paths(tree: Any) -> list[tuple[str, Any]]:
             for path, leaf in flatten_with_paths(child)]
 
 
-def _unflatten(like: Any, leaves) -> Any:
+def unflatten(like: Any, leaves) -> Any:
     """A tree shaped like ``like`` whose leaves are drawn from the iterator
     ``leaves`` in :func:`flatten_with_paths`' order."""
     if like is None:
         return None
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
         return dataclasses.replace(like, **{
-            f.name: _unflatten(getattr(like, f.name), leaves) for f in dataclasses.fields(like)})
+            f.name: unflatten(getattr(like, f.name), leaves) for f in dataclasses.fields(like)})
     if isinstance(like, dict):
-        got = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        got = {k: unflatten(like[k], leaves) for k in sorted(like)}
         return {k: got[k] for k in like}
     if isinstance(like, (tuple, list)):
-        return type(like)(_unflatten(v, leaves) for v in like)
+        return type(like)(unflatten(v, leaves) for v in like)
     return next(leaves)
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -164,8 +173,13 @@ def restore(directory: str, tree_like: Any, step: int | None = None) -> tuple[An
     def leaf(i: int, ref: Any):
         a = np.asarray(leaves[i]).reshape(tuple(np.shape(ref)))
         if isinstance(ref, torch.Tensor):
-            return torch.from_numpy(np.array(a)).to(device=ref.device, dtype=ref.dtype)
+            t = torch.from_numpy(np.array(a)).to(device=ref.device, dtype=ref.dtype)
+            if isinstance(ref, DTensor):  # every rank read the whole leaf
+                mesh = ref.device_mesh
+                t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                t = t.redistribute(mesh, ref.placements)
+            return t
         return a
 
     restored = [leaf(i, ref) for i, ref in enumerate(flat)]
-    return _unflatten(tree_like, iter(restored)), step
+    return unflatten(tree_like, iter(restored)), step

@@ -69,6 +69,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bounds as bounds_mod
 from repro_torch.core import portfolio as portfolio_mod
@@ -353,31 +354,71 @@ def _rows_to_device(a: np.ndarray, device) -> torch.Tensor:
     return _to_device(a, device)
 
 
+def _stage2_devices(device: torch.device) -> list[torch.device]:
+    """The devices stage 2 splits its rows over: this process's local
+    cards (the reference's ``shard_map`` over ``jax.local_devices()``,
+    ``vectorized.py:298-328``). A process owns every visible card unless
+    it names one (``cuda:i``) or runs in a process group of more than one
+    rank (one process a card); then it keeps stage 2 on ``device``, as it
+    does on the CPU. Otherwise the current card comes first, since the
+    first chunk's tables are placed on ``device``."""
+    if (device.type != "cuda" or device.index is not None
+            or (dist.is_initialized() and dist.get_world_size() > 1)):
+        return [device]
+    first = torch.cuda.current_device()
+    return [torch.device("cuda", first)] + [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count()) if i != first]
+
+
+def _stage2_tables(tables: tuple, devs: list) -> list[tuple]:
+    """The op tables on each of ``devs`` (replicated, as the reference's
+    ``shard_map`` replicates them; the first device's are ``tables``)."""
+    return [tables] + [tuple(t.to(d) for t in tables) for d in devs[1:]]
+
+
+def _stage2_split(rack: np.ndarray, iid: np.ndarray, tables_on: list, devs: list,
+                  dims: "_FleetDims") -> list[torch.Tensor]:
+    """Stage 2 over ``len(devs)`` equal row chunks in order, chunk i on
+    ``devs[i]``; every chunk is launched before any is read. Each row is
+    scored on its own, so the chunks' scores concatenated are the one-chunk
+    scores bit for bit. (Each card's program counts as its own size bucket
+    in ``TRACE_COUNT``.)"""
+    per = rack.shape[0] // len(devs)
+    return [
+        _scan_evaluate(
+            _to_device(rack[i * per:(i + 1) * per], d), _to_device(iid[i * per:(i + 1) * per], d),
+            *tables_on[i], m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan,
+        )
+        for i, d in enumerate(devs)
+    ]
+
+
 def make_batched_evaluator(inst: ProblemInstance, use_wireless: bool = True, device=None):
     """Build a fn: rack[B, n] int -> makespan[B] float32 (greedy non-delay).
 
     The fleet-of-one special case of the mega-batch evaluator: pads its
-    batch to the instance's size bucket (batch to a power of two) and runs
-    the shared stage-2 program on ``device`` — instances of similar size
-    share one size bucket. The returned scores are a tensor on ``device``.
+    batch to the instance's size bucket (batch to a power of two times the
+    local card count) and runs the shared stage-2 program, its rows split
+    over the local cards — instances of similar size share one size
+    bucket. The returned scores are a tensor on ``device``.
     """
     dev = resolve_device(device)
     ops = [build_op_tables(inst)]
     dims = _fleet_dims([inst], use_wireless, ops)
-    tables = _build_eval_stack([inst], dims, use_wireless, dev, ops)
+    devs = _stage2_devices(dev)
+    n_dev = len(devs)
+    tables_on = _stage2_tables(_build_eval_stack([inst], dims, use_wireless, dev, ops), devs)
     n = inst.job.n_tasks
 
     def evaluate(rack) -> torch.Tensor:
         rack = np.asarray(rack, dtype=np.int32)
         B = rack.shape[0]
-        B_pad = _bucket(B)
+        B_pad = _bucket(B) * (n_dev if _bucket(B) % n_dev else 1)
         padded = np.zeros((B_pad, dims.n_pad), dtype=np.int32)
         padded[:B, :n] = rack
         inst_id = np.zeros(B_pad, dtype=np.int32)
-        return _scan_evaluate(
-            _to_device(padded, dev), _to_device(inst_id, dev), *tables,
-            m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan,
-        )[:B]
+        parts = _stage2_split(padded, inst_id, tables_on, devs, dims)
+        return torch.cat([p.to(dev) for p in parts])[:B]
 
     evaluate.dims = dims
     return evaluate
@@ -849,15 +890,20 @@ def _run_fleet(
         op_tables = [build_op_tables(inst) for inst in instances]
     dims = _fleet_dims(instances, use_wireless, op_tables)
     dev = resolve_device(device)
-    eval_tables = _build_eval_stack(instances, dims, use_wireless, dev, op_tables)
+    devs = _stage2_devices(dev)
+    n_dev = len(devs)
+    eval_tables = _stage2_tables(
+        _build_eval_stack(instances, dims, use_wireless, dev, op_tables), devs)
     lb_args = _build_lb_arrays(instances, dims, dev) if use_kernel else None
     t2_0, t1_0 = TRACE_COUNT, LB_TRACE_COUNT
     launches = [0, 0]  # [stage1, stage2]
 
-    # One device: the reference's rounding of B2 up to the device count is
-    # a no-op here.
+    # Stage 2's rows split evenly over the local cards (the reference's
+    # shard_map): B2 rounds up to a multiple of the card count.
     B1 = I * batch_size
     B2 = I * batch_size
+    if B2 % n_dev:
+        B2 += n_dev - B2 % n_dev
 
     # Patience default: stop at the first non-improving round (the
     # pre-portfolio rule) for a single strategy; give multi-strategy
@@ -895,10 +941,8 @@ def _run_fleet(
                 rack[lo : lo + batch_size, : st.n] = blk
                 iid[lo : lo + batch_size] = st.idx
             with tr.span("stage2_launch", rows=B2):
-                vals = _scan_evaluate(
-                    _to_device(rack, dev), _to_device(iid, dev), *eval_tables,
-                    m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan,
-                ).cpu().numpy()
+                parts = _stage2_split(rack, iid, eval_tables, devs, dims)
+                vals = np.concatenate([p.cpu().numpy() for p in parts])
             launches[1] += 1
             for s, (st, blk, tb, tg) in enumerate(group):
                 lo = s * batch_size

@@ -7,7 +7,9 @@ A CUDA tensor goes to the kernel (built on first use by
 :mod:`repro_torch.kernels.build`) or raises; a CPU tensor goes to the
 plain PyTorch version in :mod:`repro_torch.kernels.ref`. There is no
 fallback from one to the other. ``launches`` counts kernel launches per
-entry point and is touched nowhere else.
+entry point and is touched nowhere else. A DTensor is refused: it has no
+storage of its own for the kernels' pointers, so under a mesh the callers
+pass each rank's local shard (``models/flash.py``, ``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ref
 
@@ -44,8 +47,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(name: str, t, ndim: int) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
+    if not isinstance(t, torch.Tensor) or isinstance(t, DTensor):
+        raise TypeError(f"{name} must be a torch.Tensor (a DTensor's local shard under a mesh)")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dimensions, got {tuple(t.shape)}")
     if t.device.type not in ("cpu", "cuda"):

@@ -19,6 +19,14 @@ An encoder-decoder model (``n_enc_layers``) serves over random frames
 both drawn from the seed's generator before the prompts, as the JAX
 launcher draws them (``launch/serve.py:40-52``): the prefill step takes
 the raw memory, the cache the encoded one.
+
+Under a mesh (``serve_model(mesh=...)``; the production mesh when the
+process group has 256 ranks or more, as the JAX launcher picks it) the
+activation rules are installed (``launch/serve.py:34-38`` of the JAX
+package) and the parameters, prompts, memory and cache are replicated
+DTensors: the JAX launcher places none of them. The results come back as
+plain tensors. A mesh takes the dense decoders only
+(``launch.mesh.check_mesh_arch``).
 """
 
 from __future__ import annotations
@@ -29,9 +37,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.checkpoint.ckpt import flatten_with_paths, unflatten
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.distribution.sharding import (
+    NamedSharding,
+    PartitionSpec,
+    activation_rules,
+    distribute,
+)
+from repro_torch.launch.mesh import check_mesh_arch, make_production_mesh
+from repro_torch.models.layers import activation_sharding
 from repro_torch.models.lm import Model, build_model
 from repro_torch.runtime.steps import build_prefill_step, build_serve_step
 
@@ -82,16 +101,37 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _replicated(tree, mesh):
+    """``tree``'s tensors as DTensors replicated over ``mesh``."""
+    shards = unflatten(tree, iter([NamedSharding(mesh, PartitionSpec())
+                                   for _ in flatten_with_paths(tree)]))
+    return distribute(tree, shards)
+
+
+def _plain(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def serve_model(model: Model, params, prompts: torch.Tensor, gen: int,
-                memory: torch.Tensor | None = None) -> ServeResult:
+                memory: torch.Tensor | None = None, mesh=None) -> ServeResult:
     """Prefill, then decode ``prompts`` [B, P] into a fresh cache and
     generate ``gen`` tokens greedily; every phase timed on the host clock
     ending in a device sync. ``memory`` is the raw frames or patches
     [B, T, d] of a model that cross-attends: the prefill step takes it as
     it is, the cache takes it encoded (the encoder runs inside the prompt
-    decode's time, before its first step)."""
+    decode's time, before its first step). ``mesh`` (a ``DeviceMesh``)
+    serves on replicated DTensors under the activation rules."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
+    if mesh is None:
+        return _serve(model, params, prompts, gen, memory, None)
+    check_mesh_arch(model.cfg)
+    with activation_sharding(activation_rules(mesh)):
+        params, prompts, memory = _replicated((params, prompts, memory), mesh)
+        return _serve(model, params, prompts, gen, memory, mesh)
+
+
+def _serve(model: Model, params, prompts, gen: int, memory, mesh) -> ServeResult:
     B, P = prompts.shape
     dev = prompts.device
     prefill = build_prefill_step(model)
@@ -113,9 +153,11 @@ def serve_model(model: Model, params, prompts: torch.Tensor, gen: int,
         with torch.no_grad():
             memory = model.encode(params, memory)
     cache = model.init_cache(B, P + gen + 1, device=dev, memory=memory)
+    if mesh is not None:
+        cache = _replicated(cache, mesh)
     for i in range(P):
         logits, cache = step(params, cache, prompts[:, i])
-        finite &= torch.isfinite(logits).all()
+        finite = finite & torch.isfinite(logits).all()
     _sync(dev)
     prompt_s = time.perf_counter() - t
     prompt_logits = logits
@@ -124,15 +166,15 @@ def serve_model(model: Model, params, prompts: torch.Tensor, gen: int,
     t = time.perf_counter()
     for _ in range(gen - 1):
         logits, cache = step(params, cache, outs[-1])
-        finite &= torch.isfinite(logits).all()
+        finite = finite & torch.isfinite(logits).all()
         outs.append(logits[:, 0].argmax(dim=-1))
     _sync(dev)
     gen_s = time.perf_counter() - t
     return ServeResult(
-        tokens=torch.stack(outs, dim=1),
-        prefill_logits=prefill_logits,
-        prompt_logits=prompt_logits,
-        all_finite=bool(finite),
+        tokens=_plain(torch.stack(outs, dim=1)),
+        prefill_logits=_plain(prefill_logits),
+        prompt_logits=_plain(prompt_logits),
+        all_finite=bool(_plain(finite)),
         prefill_s=prefill_s,
         prompt_s=prompt_s,
         gen_s=gen_s,
@@ -151,11 +193,15 @@ def serve(
     smoke: bool = True,
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt`` tokens (numpy, from
     ``seed``) with weights drawn from ``seed`` and held in bf16; frames
-    or patches first where the model cross-attends."""
+    or patches first where the model cross-attends. Without ``mesh``, a
+    process group of 256 ranks or more serves on the production mesh."""
     dev = resolve_device(device)
+    if mesh is None and dist.is_initialized() and dist.get_world_size() >= 256:
+        mesh = make_production_mesh(device=dev)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     params = model.init(seed, device=dev, dtype=torch.bfloat16)
@@ -166,7 +212,7 @@ def serve(
         memory = torch.from_numpy(
             rng.standard_normal((batch, T, cfg.d_model)).astype(np.float32)).to(dev)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(dev)
-    return serve_model(model, params, prompts, gen, memory=memory)
+    return serve_model(model, params, prompts, gen, memory=memory, mesh=mesh)
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:

@@ -1,10 +1,20 @@
-"""Training launcher for one card (counterpart of ``repro.launch.train``).
+"""Training launcher (counterpart of ``repro.launch.train``).
 
   python -m repro_torch.launch.train --arch llama3.2-3b --steps 100          # smoke config
   python -m repro_torch.launch.train --arch llama3.2-3b --no-smoke \\
       --global-batch 8 --seq 1024 --n-micro 2 --steps 4                     # full width
 
-It builds the training program the JAX launcher builds, on one device:
+It builds the training program the JAX launcher builds:
+  * the mesh (``launch/mesh.py``): the production mesh (``--multi-pod``
+    for two pods) when the process group has 256 ranks or more, as the
+    JAX launcher picks it; below that the JAX launcher's local mesh is one
+    device, and one device runs on plain tensors, so no mesh is made
+    unless the caller passes one (``train(mesh=...)``);
+  * under a mesh, the state placed by ``state_sharding``, each batch by
+    ``batch_sharding`` and the activation rules installed
+    (``distribution/sharding.py``), as DTensors; a mesh takes the dense
+    decoders only (``launch.mesh.check_mesh_arch``), the one family held
+    against the JAX package's sharded step so far;
   * the scheduler-planned gradient-reduction schedule
     (``backward_profile`` / ``plan_gradient_schedule``), logged as the
     JAX launcher logs it;
@@ -15,10 +25,9 @@ It builds the training program the JAX launcher builds, on one device:
   * checkpoint/restart through ``repro_torch.checkpoint.ckpt`` every
     ``--ckpt-every`` steps into ``--ckpt-dir``, resumed automatically.
 
-There is no mesh and no ``NamedSharding``: the multi-device stack
-(``distribution/sharding.py``, ``launch/mesh.py``) is ROADMAP Queue 1
-item 9. It runs on the CUDA card; a CPU run must be asked for with
-``--device cpu``. ``--smoke`` (the default) trains the reduced config,
+It runs on the CUDA card; a CPU run must be asked for with
+``--device cpu``. A run over several ranks starts its process group
+before it calls :func:`train`. ``--smoke`` (the default) trains the reduced config,
 ``--no-smoke`` the published widths.
 
 Checkpoints are labelled with the number of steps done (the AdamW step
@@ -36,13 +45,23 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, make_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.distribution.plan import LinkSpec, backward_profile, plan_gradient_schedule
+from repro_torch.distribution.sharding import (
+    activation_rules,
+    batch_sharding,
+    distribute,
+    gather,
+    state_sharding,
+)
+from repro_torch.launch.mesh import check_mesh_arch, make_production_mesh
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import activation_sharding
 from repro_torch.models.lm import build_model, count_params
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.steps import TrainState, build_train_step, make_train_state
@@ -102,39 +121,59 @@ def train(
     device=None,
     log=print,
     opt_cfg: AdamWConfig | None = None,
+    mesh=None,
+    multi_pod: bool = False,
 ) -> TrainResult:
     """Train ``arch`` for steps [start, ``steps``) and return the state and
     each step's metrics; ``start`` is 0, or the step of the latest
     checkpoint in ``ckpt_dir``. ``opt_cfg`` defaults to the JAX launcher's
-    ``AdamWConfig(total_steps=steps)``."""
+    ``AdamWConfig(total_steps=steps)``. ``mesh`` (a ``DeviceMesh``) runs
+    the step on DTensors over it; without one, a process group of 256
+    ranks or more gets the production mesh and a smaller one none. Under
+    a mesh the returned state holds DTensors."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     log(f"device: {dev}")
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh is None and n_dev >= 256:
+        mesh = make_production_mesh(multi_pod=multi_pod, device=dev)
+    if mesh is not None:
+        check_mesh_arch(cfg)
+        log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}  devices={n_dev}")
     model = build_model(cfg)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=steps)
     step_fn = build_train_step(model, opt_cfg, n_micro=n_micro, compress_grads=compress_grads)
     log(plan_log(cfg, global_batch * seq))
 
-    state = make_train_state(model, seed, device=dev, compress=compress_grads)
-    log(f"params: {count_params(state.params):,}")
-    data = make_pipeline(data_config(cfg, global_batch, seq))
-    start = 0
-    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-        state, start = ckpt.restore(ckpt_dir, state)
-        log(f"resumed at step {start}")
+    rules = activation_rules(mesh) if mesh is not None else {}
+    with activation_sharding(rules):
+        state = make_train_state(model, seed, device=dev, compress=compress_grads)
+        if mesh is not None:
+            state = distribute(state, state_sharding(state, mesh))
+        log(f"params: {count_params(state.params):,}")
+        data = make_pipeline(data_config(cfg, global_batch, seq))
+        start = 0
+        if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+            state, start = ckpt.restore(ckpt_dir, state)
+            log(f"resumed at step {start}")
 
-    metrics, step_s = [], []
-    for s in range(start, steps):
-        batch = batch_to(data.batch_for_step(s), dev)
-        t = time.perf_counter()
-        state, m = step_fn(state, batch)
-        m = _metrics(m)  # reads the device: the step has ended
-        step_s.append(time.perf_counter() - t)
-        metrics.append(m)
-        if s % 10 == 0 or s == steps - 1:
-            log(f"step {s:5d} loss={m['loss']:.4f} gnorm={m['grad_norm']:.3f}")
-        if ckpt_dir and s and s % ckpt_every == 0:
-            ckpt.save(ckpt_dir, s + 1, state)
+        metrics, step_s = [], []
+        for s in range(start, steps):
+            batch = batch_to(data.batch_for_step(s), dev)
+            if mesh is not None:
+                batch = distribute(batch, batch_sharding(batch, mesh))
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            m = _metrics(m)  # reads the device: the step has ended
+            step_s.append(time.perf_counter() - t)
+            metrics.append(m)
+            if s % 10 == 0 or s == steps - 1:
+                log(f"step {s:5d} loss={m['loss']:.4f} gnorm={m['grad_norm']:.3f}")
+            if ckpt_dir and s and s % ckpt_every == 0:
+                # Every rank gathers (a collective); the first one writes.
+                tree = gather(state) if mesh is not None else state
+                if not dist.is_initialized() or dist.get_rank() == 0:
+                    ckpt.save(ckpt_dir, s + 1, tree)
     return TrainResult(state=state, start=start, metrics=metrics, step_s=step_s)
 
 
@@ -150,6 +189,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", type=str, default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the two-pod production mesh (at 512 ranks)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default=None,
                     help="default: the CUDA card; 'cpu' must be asked for")
@@ -160,7 +201,7 @@ def main(argv: list[str] | None = None) -> TrainResult:
     args = parse_args(argv)
     return train(args.arch, args.steps, args.global_batch, args.seq, args.n_micro,
                  args.smoke, args.ckpt_dir, args.ckpt_every, args.compress_grads,
-                 args.seed, args.device)
+                 args.seed, args.device, multi_pod=args.multi_pod)
 
 
 if __name__ == "__main__":

@@ -18,22 +18,35 @@ Conventions kept from the JAX package:
     ``kv_len`` case and its one-token cross-attention case (one query
     row over all T rows of the memory, ``kv_len = T``).
 
-The JAX package's ``shard`` / ``activation_sharding`` hooks do nothing
-without a mesh; on one card they have no counterpart here.
+Activation sharding is injected, as in the JAX package, through
+:func:`shard` hooks that consult the rules installed by
+:func:`activation_sharding` (``repro_torch.distribution.sharding.
+activation_rules``): on a DTensor, ``shard`` redistributes to the rule's
+placements, the counterpart of ``with_sharding_constraint``; on a plain
+tensor (no mesh) it does nothing. The kernels never see a DTensor: under
+a mesh they run on each rank's local shard (``models/flash.py`` for the
+flash route, :func:`decode_attention` for the decode route).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.distribution.sharding import PartitionSpec, fit_spec, placements, shard_index
 from repro_torch.kernels import ops
 from repro_torch.models.flash import flash_attention
 
 __all__ = [
+    "shard",
+    "activation_sharding",
     "rms_norm",
     "init_rms_norm",
     "init_linear",
@@ -51,6 +64,74 @@ __all__ = [
 ]
 
 Params = dict[str, Any]
+
+_TLS = threading.local()
+
+
+def _rules() -> dict[str, Any]:
+    return getattr(_TLS, "rules", None) or {}
+
+
+@contextlib.contextmanager
+def activation_sharding(rules: dict[str, Any]):
+    """Install logical-activation -> NamedSharding rules for this thread
+    (``repro_torch.distribution.sharding.activation_rules``).
+
+    Non-empty rules mean a mesh run, and there a plain tensor that meets a
+    DTensor is taken as replicated (``implicit_replication``): the model's
+    own constants (RoPE tables, zeros, the default label mask) hold their
+    full value on every rank. The JAX package's ``with mesh:`` gives its
+    constants the same standing."""
+    old = getattr(_TLS, "rules", None)
+    _TLS.rules = rules
+    try:
+        with implicit_replication() if rules else contextlib.nullcontext():
+            yield
+    finally:
+        _TLS.rules = old
+
+
+def shard(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Redistribute the DTensor ``x`` to the ambient rule for the logical
+    activation ``name``.
+
+    The rule degrades per dimension: a mesh axis whose extent does not
+    divide the dimension is dropped (``layers.py:59-90`` of the JAX
+    package). A rank mismatch, a missing rule or a plain tensor leaves
+    ``x`` as it is.
+    """
+    sh = _rules().get(name)
+    if sh is None or not isinstance(x, DTensor):
+        return x
+    parts = list(sh.spec) + [None] * (x.ndim - len(sh.spec))
+    if len(parts) != x.ndim:
+        return x
+    mesh = sh.mesh
+    return x.redistribute(mesh, placements(mesh, fit_spec(mesh, tuple(x.shape),
+                                                          PartitionSpec(*parts))))
+
+
+def _replicated_local(x: torch.Tensor) -> torch.Tensor:
+    """The full value of ``x`` on this rank: a DTensor is replicated first
+    (a differentiable ``to_local``), a plain tensor is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def _cache_storage(cache: torch.Tensor) -> torch.Tensor:
+    """The storage that a decode step writes its new K/V row into: a
+    plain tensor, or a replicated DTensor's local copy (each rank holds
+    the whole cache). A cache placed any other way raises: the row would
+    land in a temporary gathered copy and later steps would read stale
+    rows."""
+    if not isinstance(cache, DTensor):
+        return cache
+    if any(not isinstance(p, Replicate) for p in cache.placements):
+        raise NotImplementedError(
+            f"decode_attention writes into a replicated cache only; this one is "
+            f"placed {tuple(cache.placements)}")
+    return cache.to_local()
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -171,8 +252,14 @@ def attention(
     if use_rope and kv_input is None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = shard(q, "act_heads")
     if S == 1 and kv_input is not None:
-        out = ops.decode_attention(q.reshape(B, n_heads, head_dim), k, v, T)
+        # Under a mesh the kernel runs on each rank's full copy.
+        out = ops.decode_attention(_replicated_local(q).reshape(B, n_heads, head_dim),
+                                   _replicated_local(k), _replicated_local(v), T)
+        if isinstance(q, DTensor):
+            out = DTensor.from_local(out, q.device_mesh, [Replicate()] * q.device_mesh.ndim,
+                                     run_check=False)
     else:
         out = flash_attention(q, k, v, causal and kv_input is None)
     return linear(params["wo"], out.reshape(B, S, n_heads * head_dim))
@@ -194,7 +281,13 @@ def decode_attention(
     Unlike the JAX package, which returns new cache arrays, the new K/V
     row is written into ``cache_k`` / ``cache_v`` in place (they are
     returned for the same call shape): a functional update would copy the
-    whole cache every layer and step."""
+    whole cache every layer and step.
+
+    Under a mesh (``x`` a DTensor) the cache is replicated, as the JAX
+    package's serving launcher leaves it (it places no cache): the
+    projections run as DTensor operations, then each rank writes the new
+    row into its full copy of the cache and runs the kernel on it, and the
+    kernel's output enters ``wo`` as a replicated DTensor."""
     B = x.shape[0]
     q = linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
     positions = torch.arange(pos, pos + 1, device=x.device)
@@ -203,14 +296,19 @@ def decode_attention(
     k_new = linear(params["wk"], x).reshape(B, 1, n_kv_heads, head_dim)
     v_new = linear(params["wv"], x).reshape(B, 1, n_kv_heads, head_dim)
     k_new = apply_rope(k_new, cos[None], sin[None])
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    q, k_new, v_new = (_replicated_local(t) for t in (q, k_new, v_new))
+    ck, cv = _cache_storage(cache_k), _cache_storage(cache_v)
+    ck[:, pos] = k_new[:, 0].to(ck.dtype)
+    cv[:, pos] = v_new[:, 0].to(cv.dtype)
     out = ops.decode_attention(
         q.reshape(B, n_heads, head_dim),
-        cache_k.to(x.dtype),
-        cache_v.to(x.dtype),
+        ck.to(q.dtype),
+        cv.to(q.dtype),
         pos + 1,
     )
+    if mesh is not None:
+        out = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim, run_check=False)
     out = out.reshape(B, 1, n_heads * head_dim)
     return linear(params["wo"], out), cache_k, cache_v
 
@@ -229,6 +327,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
 
 def mlp_swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(linear(params["wg"], x)) * linear(params["wi"], x)
+    h = shard(h, "act_ffn")
     return linear(params["wo"], h)
 
 
@@ -243,7 +342,36 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype=torch.f
 def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     # Gather, then cast: the same values as the JAX package's cast of the
     # whole table followed by the gather, without the table-sized copy.
+    if isinstance(params["table"], DTensor):
+        return _sharded_embed(params["table"], tokens).to(dtype)
     return params["table"][tokens].to(dtype)
+
+
+def _sharded_embed(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """``table[tokens]`` of a DTensor table, written out on the local
+    shards: the table keeps its split over the vocabulary and is gathered
+    along d; each rank looks up the tokens that fall in its rows and zeros
+    the others; the partial rows are summed over the vocabulary's mesh
+    dims. (DTensor's own strategy for the indexing's backward, an
+    ``index_put``, fails on a table split this way in torch 2.11.)"""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    vocab = [p.is_shard(0) for p in table.placements]
+    rows = [Replicate() if v or not p.is_shard(0) else p
+            for v, p in zip(vocab, tokens.placements)]  # the batch split, kept
+    # Each rank's gradient of its rows covers its own tokens only: a partial
+    # sum over the mesh dims that split the batch.
+    local = table.redistribute(mesh, [Shard(0) if v else Replicate() for v in vocab]).to_local(
+        grad_placements=[Shard(0) if v else Partial() if r.is_shard(0) else Replicate()
+                         for v, r in zip(vocab, rows)])
+    n = local.shape[0]
+    idx = tokens.redistribute(mesh, rows).to_local().long()
+    idx = idx - shard_index(mesh, table.placements, 0) * n
+    hit = (idx >= 0) & (idx < n)
+    got = local[torch.where(hit, idx, 0)] * hit[..., None].to(local.dtype)
+    partial = [Partial() if v else r for v, r in zip(vocab, rows)]
+    return DTensor.from_local(got, mesh, partial, run_check=False).redistribute(mesh, rows)
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:

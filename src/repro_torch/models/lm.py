@@ -43,9 +43,11 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distribution.sharding import shard_index
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig, layer_kinds, layer_period
@@ -60,6 +62,7 @@ from repro_torch.models.layers import (
     mlp_swiglu,
     rms_norm,
     rope_tables,
+    shard,
     unembed,
 )
 
@@ -130,6 +133,31 @@ def _store(stacked: Any, i: int, tree: Any) -> None:
             _store(s, i, t)
     else:
         stacked[i].copy_(tree)
+
+
+def _gold_logit(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lg[..., labels]``: each position's logit of its label.
+
+    Under a mesh ``lg`` is a DTensor split over the vocabulary by
+    ``act_logits``. DTensor has a strategy for this gather (a masked
+    partial sum), but the reduction of that partial fails on a gather's
+    [B, c, 1] index (``MaskPartial`` masks rows of a 1-D embedding index),
+    so the same masked partial is written out here: each rank gathers the
+    labels that fall in its slice of the vocabulary, zeros the rest, and
+    the partial values are summed over the vocabulary's mesh dims. No
+    logits are gathered."""
+    if not isinstance(lg, DTensor):
+        return torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    mesh, pl = lg.device_mesh, lg.placements
+    rows = [p if p.is_shard(0) else Replicate() for p in pl]  # the batch split, kept
+    local = lg.to_local()
+    n_local = local.shape[-1]
+    lab = labels.redistribute(mesh, rows).to_local().long()
+    lab = lab - shard_index(mesh, pl, lg.ndim - 1) * n_local
+    hit = (lab >= 0) & (lab < n_local)
+    g = torch.gather(local, -1, torch.where(hit, lab, 0)[..., None])[..., 0] * hit
+    partial = [Partial() if p.is_shard(lg.ndim - 1) else r for p, r in zip(pl, rows)]
+    return DTensor.from_local(g, mesh, partial, run_check=False).redistribute(mesh, rows)
 
 
 # Recurrent mixers: parameter key, zero decode state, one decode step.
@@ -338,7 +366,7 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
                 cfg.head_dim, causal=False,
             )
             h2 = rms_norm(lp["ffn"]["norm"], x, eps)
-            return x + mlp_swiglu(lp["ffn"]["mlp"], h2)
+            return shard(x + mlp_swiglu(lp["ffn"]["mlp"], h2), "act_hidden")
 
         for lp in _unstack(enc["layers"], cfg.n_enc_layers):
             x = _remat(layer, x, lp)
@@ -352,6 +380,7 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Final hidden states [B, S, d] and the accumulated aux loss."""
         x = embed(params["embed"], tokens, compute_dtype)
+        x = shard(x, "act_hidden")
         cos, sin = _rope(x.shape[1], x.device)
         mem = None
         if cfg.n_enc_layers:
@@ -362,13 +391,19 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
             mem = memory.to(compute_dtype)
 
         def period_fn(x, lps):
+            # The activation-sharding mode (act_in / act_mid / act_out) is
+            # set by distribution.sharding, as in the JAX package.
+            x = shard(x, "act_in")
             period_aux = None  # the period's sum, then the total (lm.py:355, :367)
             for lp, (mixer, ffn) in zip(lps, pkinds):
                 x = _apply_mixer(lp["mixer"], cfg, mixer, x, cos, sin, mem)
+                x = shard(x, "act_mid")
                 x, a = _apply_ffn(lp["ffn"], cfg, ffn, x)
+                x = shard(x, "act_mid")
                 if a is not None:
                     period_aux = a if period_aux is None else period_aux + a
-            return x, period_aux
+            # The carry saved by remat across the repeats.
+            return shard(x, "act_out"), period_aux
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         stacks = [_unstack(stacked, repeats) for stacked in params["layers"]]
@@ -384,7 +419,7 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
     # ---------------- forward (logits; small-model / test path) ----------
     def forward(params: Params, tokens: torch.Tensor, memory: torch.Tensor | None = None):
         x, aux = hidden(params, tokens, memory)
-        return unembed(out_table(params), x), aux
+        return shard(unembed(out_table(params), x), "act_logits"), aux
 
     # ---------------- loss (vocab-safe chunked cross-entropy) -------------
     def loss(params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -404,8 +439,9 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
 
         def chunk_ce(xc, lc, mc):
             lg = (xc @ tbl.to(xc.dtype).T).to(torch.float32)
+            lg = shard(lg, "act_logits")
             logz = torch.logsumexp(lg, dim=-1)
-            gold = torch.gather(lg, -1, lc[..., None].long())[..., 0]
+            gold = _gold_logit(lg, lc)
             return torch.sum((logz - gold) * mc), torch.sum(mc)
 
         tot = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -19,8 +19,11 @@ depend on them:
     a dropped pair adds zeros into slot 0 of its expert, as ``.at[].add``
     does (``:83-84``).
 
-The JAX package's ``shard`` hooks do nothing on one card and have no
-counterpart here.
+The JAX package's ``shard`` hooks stand at its lines: the expert buffer
+and the expert FFN's hidden state are placed over 'model' under a mesh
+(``act_expert``, ``act_expert_ffn``) and left as they are on plain
+tensors. The routing (the stable sort, the cumulative sum, the scatter)
+has not been run on DTensors yet.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal, init_linear
+from repro_torch.models.layers import _normal, init_linear, shard
 
 Params = dict[str, Any]
 
@@ -102,12 +105,14 @@ def moe_ffn(
                                                                         device=x.device))
     expert_in = torch.zeros((n_experts, cap, d), dtype=x.dtype, device=x.device)
     expert_in.index_put_((flat_expert, pos_c), gathered, accumulate=True)
+    expert_in = shard(expert_in, "act_expert")
 
     # Batched expert FFN (SwiGLU).
     wi = params["wi"].to(x.dtype)
     wg = params["wg"].to(x.dtype)
     wo = params["wo"].to(x.dtype)
     h = F.silu(torch.bmm(expert_in, wg)) * torch.bmm(expert_in, wi)
+    h = shard(h, "act_expert_ffn")
     expert_out = torch.bmm(h, wo)  # [E, C, d]
 
     out_pairs = expert_out[flat_expert, pos_c]  # [TK, d]

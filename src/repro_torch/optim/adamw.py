@@ -21,6 +21,12 @@ The step count, the learning rate and the bias corrections are float32
 scalars computed on the host as the reference computes them in float32;
 the clip factor comes from the gradients' norm and stays on the device,
 so a step makes no host-device round trip.
+
+Under a mesh the parameters, m and v are DTensors of one placement per
+leaf (``distribution.sharding.state_sharding``). Each gradient is first
+redistributed to its parameter's placements (it may arrive ``Partial``),
+the norm sums each leaf's local squares over the ranks that hold distinct
+shards of it, and the elementwise update runs on the local shards.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 __all__ = [
     "AdamWConfig",
@@ -103,12 +110,41 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares
-    (taken without a squared copy of the leaf)."""
+    (taken without a squared copy of the leaf). With DTensor leaves the
+    result is a plain tensor, the same on every rank."""
+    leaves = tree_leaves(tree)
+    if any(isinstance(x, DTensor) for x in leaves):
+        return _global_norm_sharded(leaves)
     leaves = [
         torch.square(torch.linalg.vector_norm(x.detach(), dtype=torch.float32))
-        for x in tree_leaves(tree)
+        for x in leaves
     ]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _global_norm_sharded(leaves: list) -> torch.Tensor:
+    """:func:`global_norm` of DTensor leaves: each leaf's local sum of
+    squares is a partial sum over the mesh dims that shard it and a full
+    one over the others. The squares are reduced over the ranks leaf by
+    leaf (one collective for each set of sharded dims) and then summed in
+    leaf order, as the plain version sums them: on a 1 x 1 mesh the result
+    is the plain version's bit for bit."""
+    sqs, keys = [], []
+    for x in leaves:
+        mesh = x.device_mesh
+        pl = [Replicate() if p.is_partial() else p for p in x.placements]
+        local = x.detach().redistribute(mesh, pl).to_local()
+        sqs.append(torch.square(torch.linalg.vector_norm(local, dtype=torch.float32)))
+        keys.append(tuple(p.is_shard() for p in pl))
+    sqs = torch.stack(sqs)
+    for key in set(keys):
+        if not any(key):
+            continue  # replicated: every rank holds the whole sum
+        idx = torch.tensor([i for i, k in enumerate(keys) if k == key], device=sqs.device)
+        part = [Partial() if s else Replicate() for s in key]
+        full = DTensor.from_local(sqs[idx], mesh, part, run_check=False).full_tensor()
+        sqs = sqs.index_copy(0, idx, full)
+    return torch.sqrt(torch.sum(sqs))
 
 
 def adamw_init(params: Params) -> dict[str, Any]:
@@ -143,7 +179,10 @@ def adamw_update(
     same parameter and moment tensors updated; metrics are ``grad_norm``
     (a 0-d device tensor) and ``lr`` (a float32 0-d CPU tensor)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    p_leaves = tree_leaves(params)
+    g_leaves = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+                for p, g in zip(p_leaves, tree_leaves(grads))]
+    gnorm = global_norm(g_leaves)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = cosine_schedule(cfg, step)
     b1t = float(1.0 - torch.pow(_f32(cfg.b1), step.to(torch.float32)))
@@ -159,9 +198,9 @@ def adamw_update(
         pf = p.to(torch.float32)
         p.copy_(pf - lr_f * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf))
 
-    leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
-                 tree_leaves(state["v"]))
-    for p, g, m, v in leaves:
+    leaves = zip(p_leaves, g_leaves, tree_leaves(state["m"]), tree_leaves(state["v"]))
+    for leaf in leaves:
+        p, g, m, v = (t.to_local() if isinstance(t, DTensor) else t for t in leaf)
         for part in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
             upd(*part)
     new_state = {"m": state["m"], "v": state["v"], "step": step}

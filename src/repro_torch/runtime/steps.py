@@ -5,6 +5,12 @@ PyTorch runs eagerly, so a step is a plain function of its state; there
 is nothing to jit. The training step updates its state in place (the
 parameters, m and v; see :mod:`repro_torch.optim.adamw`) and returns the
 same tensors in a new :class:`TrainState`.
+
+Under a mesh the state's tensors are DTensors placed by
+``distribution.sharding.state_sharding`` and the batch's by
+``batch_sharding`` (``launch/train.py`` places both); the step is the
+same code, with each micro-batch placed again by ``batch_sharding`` and
+the loss returned as a plain tensor.
 """
 
 from __future__ import annotations
@@ -13,7 +19,9 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distribution.sharding import batch_sharding, distribute
 from repro_torch.models.lm import Model
 from repro_torch.optim.adamw import (
     AdamWConfig,
@@ -65,6 +73,14 @@ def _micro_batches(batch: dict[str, torch.Tensor], n_micro: int) -> list[dict]:
     if B % n_micro:
         raise ValueError(f"batch {B} does not split into {n_micro} micro-batches")
     per = B // n_micro
+    meshes = [v.device_mesh for v in batch.values() if isinstance(v, DTensor)]
+    if meshes:
+        # A micro-batch's rows lie on other ranks than the batch's: gather
+        # the batch (token ids, and frames or patches where the model has
+        # them) and place each micro-batch by its own batch sharding.
+        full = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in batch.items()}
+        mbs = [{k: v[i * per:(i + 1) * per] for k, v in full.items()} for i in range(n_micro)]
+        return [distribute(mb, batch_sharding(mb, meshes[0])) for mb in mbs]
     return [{k: v[i * per:(i + 1) * per] for k, v in batch.items()} for i in range(n_micro)]
 
 
@@ -108,6 +124,8 @@ def build_train_step(
         params, opt, metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
         for t in leaves:
             t.grad = None
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
         return TrainState(params=params, opt=opt, residual=residual), dict(metrics, loss=loss)
 
     return train_step

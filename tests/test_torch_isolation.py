@@ -28,9 +28,12 @@ def test_import_loads_neither_jax_nor_reference_package():
         import repro_torch.distribution.plan
         import repro_torch.models.flash, repro_torch.optim.adamw, repro_torch.optim.grad
         import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt
-        import repro_torch.launch.train
+        import repro_torch.launch.train, repro_torch.launch.mesh
+        import repro_torch.distribution.sharding
         import repro_torch.obs.export, repro_torch.obs.report
         repro_torch.configs.get_config("llama3.2-3b")
+        mesh = repro_torch.launch.mesh.make_local_mesh(device="cpu")
+        repro_torch.distribution.sharding.activation_rules(mesh)
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.")
@@ -102,6 +105,7 @@ def test_model_stack_has_no_quiet_cpu_fallback():
     from repro_torch.configs import smoke_config
     from repro_torch.interop import lm_cache_from_arrays, lm_params_from_arrays
     from repro_torch.kernels import attention
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
     from repro_torch.launch.serve import serve
     from repro_torch.models.lm import build_model
 
@@ -118,6 +122,14 @@ def test_model_stack_has_no_quiet_cpu_fallback():
         lm_params_from_arrays({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_cache_from_arrays({"pos": np.int32(0), "layers": ()})
+    # The meshes are the card's unless the CPU is asked for; the check comes
+    # before any process group is started.
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_local_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh(multi_pod=True)
     # The attention wrappers launch a kernel only for a CUDA tensor; a CPU
     # tensor, asked for by name, takes the plain version and counts nothing.
     before = dict(attention.launches)
