@@ -285,6 +285,14 @@ FAMILY_TRAIN = (
 )
 FAMILY_TRAIN_STEPS = 3
 VISION_CUT_LAYERS = 4  # 8e's kernels-against-plain arm: the fewest layers holding the cross layer
+# Phase 9e / 9f: the families on the 1 x 1 mesh. 9e trains 8e's arms for
+# FAMILY_MESH_STEPS steps (the first warms up) and holds them to 8e's first
+# two at MESH_REL_TOL and UPDATE_REL_TOL; 9f serves jamba (J_LAYERS),
+# xlstm, seamless (frames as long as the prompt) and vision (V_PATCHES)
+# with MESH_BATCH x FAMILY_MESH_PROMPT tokens and FAMILY_MESH_GEN
+# generated through the mesh route and the route without one.
+FAMILY_MESH_STEPS = 2
+FAMILY_MESH_PROMPT, FAMILY_MESH_GEN = 64, 8
 
 
 def emit(tag: str, **fields) -> None:
@@ -1767,39 +1775,61 @@ def mesh_serve_kernels(torch, cfg) -> dict:
     MESH_PROMPT + MESH_GEN + 1 rows at every kv_len 1 .. T - 1, an int as
     the serve step passes it; bf16, at ATTN_TOL and ATTN_ROW_TOL. Returns
     each kernel's (max abs error, max row-relative error)."""
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T = MESH_PROMPT + MESH_GEN + 1
+    return attention_vs_plain(torch, [(MESH_BATCH, MESH_PROMPT, MESH_PROMPT, H, KV, D, True)],
+                              [(MESH_BATCH, T, H, KV, D, range(1, T))], "9c")
+
+
+def attention_vs_plain(torch, flash_shapes, decode_shapes, what: str) -> dict:
+    """Both attention kernels against their plain versions (``kernels/ref.py``)
+    on bf16 randn inputs, at ATTN_TOL and ATTN_ROW_TOL: flash at each
+    (B, S, T, H, KV, D, causal) of ``flash_shapes``, decode at each (B, T,
+    H, KV, D, kv_lens) of ``decode_shapes``, every kv_len an int as the
+    serve step passes it. Returns each kernel's (max abs error, max
+    row-relative error) over its shapes."""
     from repro_torch.kernels import attention, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
-    B, S, H, KV, D = MESH_BATCH, MESH_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def rn(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
-    q, k, v = rn((B, S, H, D)), rn((B, S, KV, D)), rn((B, S, KV, D))
-    out = {"flash_attention": check_attention(
-        torch, "flash_attention", attention.flash_attention(q, k, v, True),
-        ref.ref_flash_attention(q, k, v, True), bf16, f"9c prefill {(B, S, S, H, KV, D)}")}
-    T = MESH_PROMPT + MESH_GEN + 1
-    q, k, v = rn((B, H, D)), rn((B, T, KV, D)), rn((B, T, KV, D))
-    errs = [check_attention(torch, "decode_attention", attention.decode_attention(q, k, v, n),
-                            ref.ref_decode_attention(q, k, v, n), bf16,
-                            f"9c decode {(B, H, KV, D, T)} kv_len {n}")
-            for n in range(1, T)]
-    out["decode_attention"] = (max(e for e, _ in errs), max(r for _, r in errs))
+    out = {}
+    errs = []
+    for B, S, T, H, KV, D, causal in flash_shapes:
+        q, k, v = rn((B, S, H, D)), rn((B, T, KV, D)), rn((B, T, KV, D))
+        errs.append(check_attention(
+            torch, "flash_attention", attention.flash_attention(q, k, v, causal),
+            ref.ref_flash_attention(q, k, v, causal), bf16,
+            f"{what} flash {(B, S, T, H, KV, D)} causal={causal}"))
+    if errs:
+        out["flash_attention"] = (max(e for e, _ in errs), max(r for _, r in errs))
+    errs = []
+    for B, T, H, KV, D, lens in decode_shapes:
+        q, k, v = rn((B, H, D)), rn((B, T, KV, D)), rn((B, T, KV, D))
+        errs += [check_attention(torch, "decode_attention", attention.decode_attention(q, k, v, n),
+                                 ref.ref_decode_attention(q, k, v, n), bf16,
+                                 f"{what} decode {(B, H, KV, D, T)} kv_len {n}")
+                 for n in lens]
+    if errs:
+        out["decode_attention"] = (max(e for e, _ in errs), max(r for _, r in errs))
     return out
 
 
-def mesh_phases(np, torch, kept8: dict) -> dict:
+def mesh_phases(np, torch, kept8: dict, kept8e: dict) -> dict:
     """9. The multi-device stack on the card's 1 x 1 mesh: 9a the mesh and
     the sharding tables, 9b llama3.2-3b trained through ``train(mesh=...)``
     at 8b's shape (the mesh training path: every count set to 0 just
     before, read just after), held against 8b's losses, grad norms and
     sampled updates; 9c the full-width serve through ``serve_model(mesh=
     ...)`` against the route without a mesh (its own counts), and the
-    kernels held against their plain versions at 9c's shapes; 9d the
-    stage-2 split's card and chunk counts. Returns each attention kernel's
-    max abs error at 9c's shapes."""
+    kernels held against their plain versions at 9c's shapes; 9e and 9f
+    the families trained and served on the mesh (``family_mesh_training``,
+    ``family_mesh_serving``); 9d the stage-2 split's card and chunk counts.
+    Returns each attention kernel's max abs error at 9c's and 9f's
+    shapes."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint.ckpt import flatten_with_paths
@@ -1963,6 +1993,11 @@ def mesh_phases(np, torch, kept8: dict) -> dict:
     del params, out
     torch.cuda.empty_cache()
 
+    # -- 9e / 9f. the expert, recurrent and cross-attention families ---------
+    family_mesh_training(np, torch, mesh, kept8e)
+    for n, (e, r) in family_mesh_serving(np, torch, mesh).items():
+        kern9[n] = (max(kern9[n][0], e), max(kern9[n][1], r))
+
     # -- 9d. stage 2's split over the local cards ---------------------------
     devs = vectorized._stage2_devices(torch.device("cuda"))
     check(len(devs) == torch.cuda.device_count(), f"stage 2 splits over {devs}")
@@ -1970,6 +2005,212 @@ def mesh_phases(np, torch, kept8: dict) -> dict:
     dist.destroy_process_group()
     emit("mesh_phase", seconds=time.perf_counter() - t_phase)
     return {n: e for n, (e, _) in kern9.items()}
+
+
+def family_mesh_training(np, torch, mesh, kept8e: dict) -> None:
+    """9e. 8e's arms (FAMILY_TRAIN: published widths, the same seed-0 state,
+    pipeline batches and AdamW) trained on DTensors over the card's 1 x 1
+    mesh, the state placed by ``state_sharding``, each batch (with its
+    frames or patches) by ``batch_sharding``, under the activation rules:
+    FAMILY_MESH_STEPS steps, the first under cProfile (it warms up; its
+    host costs are reported), every count set to 0 just before and read
+    just after (exact: 8e's counts for as many steps), the losses and grad
+    norms within MESH_REL_TOL of 8e's first two, each leaf's sampled update
+    within UPDATE_REL_TOL of 8e's after its second step, and xlstm's
+    device kernel count a step within 1% of 8e's (its time loops run on
+    local tensors). One more step runs under the profiler: ms a step, busy
+    share, MFU and peak memory beside 8e's."""
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.sharding import (
+        activation_rules,
+        batch_sharding,
+        distribute,
+        state_sharding,
+    )
+    from repro_torch.kernels import attention
+    from repro_torch.launch.train import batch_to, data_config, make_pipeline
+    from repro_torch.models.config import layer_kinds
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.runtime.steps import build_train_step, make_train_state
+
+    t_phase = time.perf_counter()
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=FAMILY_TRAIN_STEPS)
+    rules = activation_rules(mesh)
+    for label, arch, layers, B, S in FAMILY_TRAIN:
+        k8 = kept8e[label]
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        model = build_model(cfg)
+        step = build_train_step(model, opt_cfg, n_micro=TRAIN_MICRO)
+        dcfg = data_config(cfg, B, S)
+        data = make_pipeline(dcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with activation_sharding(rules):
+            batches = []
+            for i in range(FAMILY_MESH_STEPS + 1):
+                b = batch_to(data.batch_for_step(i), "cuda")
+                batches.append(distribute(b, batch_sharding(b, mesh)))
+            state = make_train_state(model, 0, device="cuda")
+            leaves = tree_leaves(state.params)
+            n_params = sum(x.numel() for x in leaves)
+            strides, samples = leaf_samples(leaves)
+            check(strides == k8["strides"], f"9e {label}: leaves differ from 8e's")
+            state = distribute(state, state_sharding(state, mesh))
+            del leaves
+            for key in attention.launches:
+                attention.launches[key] = 0
+            box, metrics, step_s = [state], [], []
+            del state
+
+            def run(b):
+                t = time.perf_counter()
+                box[0], m = step(box[0], b)
+                metrics.append({k: float(v) for k, v in m.items()})  # reads the device
+                step_s.append(time.perf_counter() - t)
+
+            costs = host_costs(lambda: run(batches[0]))
+            for b in batches[1:FAMILY_MESH_STEPS]:
+                run(b)
+            launches = dict(attention.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            updates = sampled_updates(box[0].params, strides, samples)
+            del samples
+            step_mean = float(np.mean(step_s[1:]))
+            prof = profile_run(f"train_{label}_mesh", lambda: step(box[0], batches[-1]), step_mean)
+        want = {k: v * FAMILY_MESH_STEPS for k, v in k8["launches_per_step"].items()}
+        check(launches == want, f"9e {label}: launches {launches}, expected 8e's {want}")
+        losses = [m["loss"] for m in metrics]
+        gnorms = [m["grad_norm"] for m in metrics]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, k8["losses"]))
+        gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(gnorms, k8["grad_norms"]))
+        check(loss_rel <= MESH_REL_TOL, f"9e {label}: losses {losses} against 8e's {k8['losses']}")
+        check(gnorm_rel <= MESH_REL_TOL,
+              f"9e {label}: grad norms {gnorms} against 8e's {k8['grad_norms']}")
+        rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+               for a, b in zip(updates, k8["updates"])]
+        check(max(rel) <= UPDATE_REL_TOL, f"9e {label}: updates against 8e's: {rel}")
+        kernels, kernels8 = prof.get("device_kernels"), k8["profile"].get("device_kernels")
+        if label == "xlstm":
+            check(kernels is not None and kernels8 is not None
+                  and abs(kernels / kernels8 - 1) <= 0.01,
+                  f"9e xlstm: {kernels} device kernels a step against 8e's {kernels8}")
+        n_moe = sum(ffn == "moe" for _, ffn in layer_kinds(cfg))
+        n_active = (n_params - n_moe * (cfg.n_experts - cfg.experts_per_token)
+                    * 3 * cfg.d_model * cfg.d_ff)
+        flops = train_bound(torch, cfg, n_params, n_active, B, S, dcfg.memory_len)["dense_flops"]
+        emit("family_train_mesh", arm=label, arch=cfg.name, layers=cfg.n_layers, mesh="1x1",
+             batch=B, seq=S, memory_rows=dcfg.memory_len, n_micro=TRAIN_MICRO,
+             steps=FAMILY_MESH_STEPS, step_s=step_s, step_s_8e=k8["step_s"],
+             ms_per_step=1e3 * step_mean, ms_per_step_8e=k8["ms_per_step"],
+             mfu=flops / step_mean / BF16_OPS_PER_S, mfu_8e=k8["mfu"],
+             busy_share=prof.get("busy_share_of_unprofiled"),
+             busy_share_8e=k8["profile"].get("busy_share_of_unprofiled"),
+             device_s=prof.get("device_s"), device_s_8e=k8["profile"].get("device_s"),
+             device_kernels=kernels, device_kernels_8e=kernels8,
+             peak_gib=peak, peak_gib_8e=k8["peak_gib"], losses=losses, losses_8e=k8["losses"],
+             grad_norms=gnorms, grad_norms_8e=k8["grad_norms"], loss_max_rel=loss_rel,
+             grad_norm_max_rel=gnorm_rel, update_rel_max=max(rel),
+             update_rel_mean=float(np.mean(rel)), launches=launches,
+             host_costs_warmup_step=costs)
+        del box, batches, model, step, updates
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("family_train_mesh_phase", seconds=time.perf_counter() - t_phase)
+
+
+def family_mesh_serving(np, torch, mesh) -> dict:
+    """9f. jamba (J_LAYERS layers: attention, SSD, 16-expert MoE), xlstm,
+    seamless over frames and vision over V_PATCHES patches served at their
+    published widths through ``serve_model(mesh=...)`` on the card's 1 x 1
+    mesh and through the route without a mesh, the same seed-0 bf16
+    weights, MESH_BATCH x FAMILY_MESH_PROMPT prompt tokens and
+    FAMILY_MESH_GEN generated; every count set to 0 just before each serve
+    and read just after (exact, and equal on the two routes). The tokens
+    are equal for seamless and vision, their last prompt logits within
+    ``max(0.05, 0.02 * n_layers)``; jamba (MoE) and xlstm are held on
+    phase 7's KL bars. Both kernels are held against their plain versions
+    at 9f's shapes (the two routes launch the same kernels). Returns each
+    kernel's (max abs error, max row-relative error)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models.config import layer_kinds
+    from repro_torch.models.lm import build_model
+
+    t_phase = time.perf_counter()
+    B, P, gen = MESH_BATCH, FAMILY_MESH_PROMPT, FAMILY_MESH_GEN
+    arms = (("jamba", dc.replace(get_config(J_ARCH), n_layers=J_LAYERS), 0),
+            ("xlstm", get_config(X_ARCH), 0),
+            ("seamless", get_config(F_ARCH), P),
+            ("vision", get_config(V_ARCH), V_PATCHES))
+    flash_shapes, decode_shapes = set(), set()
+    for label, cfg, T in arms:
+        model = build_model(cfg)
+        params = model.init(0, device="cuda", dtype=torch.bfloat16)
+        rng = np.random.default_rng(0)  # memory first, then the prompts (launch/serve.py:40-52)
+        memory = None if not T else torch.from_numpy(
+            rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)).cuda()
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))).cuda()
+        pf, dec, enc = attention_calls(cfg)
+        want = {k: 0 for k in attention.launches}
+        want.update(flash_attention=2 * pf + (enc if memory is not None else 0),
+                    decode_attention=dec * (P + gen - 1))
+        out, launches = {}, {}
+        for route, m in (("mesh", mesh), ("plain", None)):
+            for k in attention.launches:
+                attention.launches[k] = 0
+            out[route] = serve_model(model, params, prompts, gen, memory=memory, mesh=m)
+            torch.cuda.synchronize()
+            launches[route] = dict(attention.launches)
+            check(launches[route] == want,
+                  f"9f {label} {route}: launches {launches[route]}, expected {want}")
+            check(out[route].all_finite, f"9f {label} {route}: a logit is not finite")
+        by_kl = bool(cfg.n_experts) or label == "xlstm"
+        tokens_equal = bool(torch.equal(out["mesh"].tokens, out["plain"].tokens))
+        if not by_kl:
+            check(tokens_equal, f"9f {label}: the mesh route's tokens differ")
+        gate = agree(torch, out["mesh"].prompt_logits, out["plain"].prompt_logits,
+                     None if by_kl else max(0.05, 0.02 * cfg.n_layers),
+                     f"9f {label}: mesh != plain at the last prompt position")
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kinds = {mixer for mixer, _ in layer_kinds(cfg)}
+        if kinds & {"attn", "attn_cross"}:
+            flash_shapes.add((B, P, P, H, KV, D, True))
+            decode_shapes.add((B, P + gen + 1, H, KV, D, range(1, P + gen + 1)))
+        if kinds & {"cross", "attn_cross"}:
+            flash_shapes.add((B, P, T, H, KV, D, False))
+            decode_shapes.add((B, T, H, KV, D, (T,)))
+        if cfg.n_enc_layers:
+            flash_shapes.add((B, T, T, H, KV, D, False))
+        emit("family_serve_mesh", arm=label, arch=cfg.name, layers=cfg.n_layers,
+             enc_layers=cfg.n_enc_layers, mesh="1x1", batch=B, prompt=P, gen=gen,
+             memory_rows=T, tokens_equal=tokens_equal, tokens_gated=not by_kl, **gate,
+             ms_per_decode_step=out["mesh"].ms_per_step,
+             ms_per_decode_step_plain=out["plain"].ms_per_step,
+             time_to_first_token_s=out["mesh"].first_token_s,
+             time_to_first_token_s_plain=out["plain"].first_token_s,
+             prefill_s=out["mesh"].prefill_s, prefill_s_plain=out["plain"].prefill_s,
+             peak_gib=out["mesh"].peak_bytes / 2**30,
+             peak_gib_plain=out["plain"].peak_bytes / 2**30,
+             launches=launches["mesh"], launches_plain=launches["plain"])
+        del model, params, out, memory
+        torch.cuda.empty_cache()
+    # The two routes launch the same kernels: hold them against their plain
+    # versions at 9f's shapes.
+    errs = attention_vs_plain(torch, sorted(flash_shapes),
+                              sorted(decode_shapes, key=lambda s: s[:5]), "9f")
+    emit("family_serve_mesh_kernels", flash_shapes=[list(s) for s in sorted(flash_shapes)],
+         decode_shapes=[list(s[:5]) + [len(s[5])] for s in sorted(decode_shapes,
+                                                                    key=lambda s: s[:5])],
+         **{n: dict(max_abs_err=e, max_row_rel_err=r) for n, (e, r) in errs.items()})
+    emit("family_serve_mesh_phase", seconds=time.perf_counter() - t_phase)
+    return errs
 
 
 def family_training(np, torch) -> dict:
@@ -1993,7 +2234,7 @@ def family_training(np, torch) -> dict:
 
     t_phase = time.perf_counter()
     opt_cfg = AdamWConfig(warmup_steps=2, total_steps=FAMILY_TRAIN_STEPS)
-    counts = {}
+    counts, kept = {}, {}
     for label, arch, layers, B, S in FAMILY_TRAIN:
         full = get_config(arch)
         cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
@@ -2020,16 +2261,17 @@ def family_training(np, torch) -> dict:
         n_active = n_params - n_moe * (cfg.n_experts - cfg.experts_per_token) * 3 * cfg.d_model * cfg.d_ff
         # Every leaf moved: a strided sample of each (at most ~1 M entries),
         # since a second copy of jamba's weights would not fit beside its state.
-        strides = [max(1, x.numel() // 2**20) for x in leaves]
-        samples = [x.detach().reshape(-1)[::k].clone() for x, k in zip(leaves, strides)]
+        strides, samples = leaf_samples(leaves)
         for key in attention.launches:
             attention.launches[key] = 0
-        metrics, step_s = [], []
+        metrics, step_s, updates = [], [], None
         for b in batches[:FAMILY_TRAIN_STEPS]:
             t = time.perf_counter()
             state, m = step(state, b)
             metrics.append({k: float(v) for k, v in m.items()})  # reads the device
             step_s.append(time.perf_counter() - t)
+            if len(metrics) == 2:  # what 9e compares with: the update after 2 steps
+                updates = sampled_updates(state.params, strides, samples)
         launches = dict(attention.launches)
         peak = torch.cuda.max_memory_allocated()
         calls = attention_calls(cfg)[0] * TRAIN_MICRO * FAMILY_TRAIN_STEPS
@@ -2047,12 +2289,12 @@ def family_training(np, torch) -> dict:
         del samples
         step_mean = float(np.mean(step_s[1:]))
         bound = train_bound(torch, cfg, n_params, n_active, B, S, dcfg.memory_len)
+        mfu = bound.pop("dense_flops") / step_mean / BF16_OPS_PER_S
         emit("family_train", arm=label, arch=cfg.name, layers=cfg.n_layers,
              published_layers=full.n_layers, enc_layers=cfg.n_enc_layers, params=n_params,
              active_params=n_active, batch=B, seq=S, memory_rows=dcfg.memory_len,
              n_micro=TRAIN_MICRO, steps=FAMILY_TRAIN_STEPS, init_s=init_s, step_s=step_s,
-             ms_per_step=1e3 * step_mean, tokens_per_s=B * S / step_mean,
-             mfu=bound.pop("dense_flops") / step_mean / BF16_OPS_PER_S,
+             ms_per_step=1e3 * step_mean, tokens_per_s=B * S / step_mean, mfu=mfu,
              share_of_bound=bound["step_bound_ms"] / (1e3 * step_mean), peak_gib=peak / 2**30,
              state_gib=16 * n_params / 2**30, losses=losses, grad_norms=gnorms,
              lrs=[m["lr"] for m in metrics], min_leaf_sample_moved=min(moved),
@@ -2062,7 +2304,12 @@ def family_training(np, torch) -> dict:
         def one_step():
             step(state, batches[-1])
 
-        profile_run(f"train_{label}", one_step, step_mean)
+        prof = profile_run(f"train_{label}", one_step, step_mean)
+        kept[label] = dict(losses=losses[:2], grad_norms=gnorms[:2], updates=updates,
+                           strides=strides, step_s=step_s, ms_per_step=1e3 * step_mean,
+                           mfu=mfu, peak_gib=peak / 2**30, profile=prof,
+                           launches_per_step={k: v // FAMILY_TRAIN_STEPS
+                                              for k, v in launches.items()})
         del state, batches, leaves, model, step
         if label == "vision":
             cut = dataclasses.replace(full, n_layers=VISION_CUT_LAYERS)
@@ -2074,7 +2321,29 @@ def family_training(np, torch) -> dict:
                  cut=f"{full.n_layers} -> {cut.n_layers} layers, widths as published",
                  **kernels_vs_plain(np, torch, cut, B, S, opt_cfg, "8e vision"))
     emit("family_train_phase", seconds=time.perf_counter() - t_phase, launches=counts)
-    return counts
+    return counts, kept
+
+
+def leaf_samples(leaves) -> tuple[list, list]:
+    """(strides, samples): every k-th entry of each leaf, k chosen so that
+    at most ~2**20 entries are kept (8e's, 9e's), cloned on the device."""
+    strides = [max(1, x.numel() // 2**20) for x in leaves]
+    return strides, [x.detach().reshape(-1)[::k].clone() for x, k in zip(leaves, strides)]
+
+
+def sampled_updates(params, strides, samples) -> list:
+    """Each leaf's update against its ``samples`` at the same ``strides``,
+    as float32 CPU tensors (a DTensor leaf by its local shard: the whole
+    leaf on a 1 x 1 mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    out = []
+    for x, k, s0 in zip(tree_leaves(params), strides, samples):
+        x = x.to_local() if isinstance(x, DTensor) else x
+        out.append((x.detach().reshape(-1)[::k].float() - s0.float()).cpu())
+    return out
 
 
 def production_scenario(np, torch, stream) -> None:
@@ -2578,12 +2847,12 @@ def main() -> int:
     train_launches, kept8 = training_phases(np, torch)
     for name in ("flash_attention_lse",) + BWD_KERNELS:
         table[name]["launches"] = train_launches[name]
-    family_training(np, torch)
+    _, kept8e = family_training(np, torch)
 
     # -- 9. the multi-device stack on the card's 1 x 1 mesh -------------------
-    for name, err in mesh_phases(np, torch, kept8).items():
+    for name, err in mesh_phases(np, torch, kept8, kept8e).items():
         table[name]["max_abs_err"] = max(table[name]["max_abs_err"], err)
-    del kept8
+    del kept8, kept8e
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],

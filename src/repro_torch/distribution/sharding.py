@@ -320,8 +320,10 @@ def activation_rules(mesh) -> dict[str, NamedSharding]:
 
 def _place(t: torch.Tensor, sharding: NamedSharding) -> DTensor:
     """``t``, held in full by every rank, as a DTensor: each rank keeps its
-    own shard (no communication)."""
+    own shard (no communication). A DTensor is redistributed."""
     mesh = sharding.mesh
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, sharding.placements)
     full = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
     return full.redistribute(mesh, sharding.placements)
 

@@ -26,7 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig, layer_kinds
 
 __all__ = ["ensure_process_group", "make_production_mesh", "make_local_mesh",
-           "check_mesh_arch"]
+           "check_mesh_arch", "MESH_MIXERS", "MESH_FFNS"]
 
 
 def ensure_process_group(device=None) -> None:
@@ -82,14 +82,21 @@ def make_local_mesh(model: int = 1, device=None) -> DeviceMesh:
     return _mesh(dev, (1, model), ("data", "model"))
 
 
+# The layer kinds whose mesh route is held against the JAX package's
+# sharded step (tests/test_torch_mesh.py, tests/test_torch_mesh_families.py)
+# and against the route without a mesh (tests/test_torch_mesh_families_serve.py).
+MESH_MIXERS = frozenset({"attn", "attn_cross", "cross", "mamba", "mlstm", "slstm"})
+MESH_FFNS = frozenset({"mlp", "moe", "none"})
+
+
 def check_mesh_arch(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense decoder
-    (self-attention and a SwiGLU MLP in every layer, no encoder): only that
-    route has been held under DTensor against the JAX package's sharded
-    step. The expert routing, the SSD and xLSTM scans and the encoder and
-    cross-attention layers have not run on DTensors yet."""
-    kinds = set(layer_kinds(cfg))
-    if cfg.n_enc_layers or kinds != {("attn", "mlp")}:
+    """Raise ``NotImplementedError`` if a layer of ``cfg`` is of a kind
+    (mixer, FFN) that no test holds under a mesh. Every kind of the ten
+    configs is held: the dense decoders, the expert routing (MoE), the
+    SSD and xLSTM scans, and the encoder and cross-attention layers (an
+    encoder layer is self-attention and a SwiGLU MLP)."""
+    bad = sorted(k for k in set(layer_kinds(cfg))
+                 if k[0] not in MESH_MIXERS or k[1] not in MESH_FFNS)
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}; layers {sorted(kinds)}) has not been checked "
-            "under a mesh: only dense decoders run on one")
+            f"{cfg.name} ({cfg.family}): layers {bad} have not been checked under a mesh")

@@ -23,10 +23,11 @@ the raw memory, the cache the encoded one.
 Under a mesh (``serve_model(mesh=...)``; the production mesh when the
 process group has 256 ranks or more, as the JAX launcher picks it) the
 activation rules are installed (``launch/serve.py:34-38`` of the JAX
-package) and the parameters, prompts, memory and cache are replicated
-DTensors: the JAX launcher places none of them. The results come back as
-plain tensors. A mesh takes the dense decoders only
-(``launch.mesh.check_mesh_arch``).
+package) and the parameters, prompts, memory and cache (the K/V rows, the
+SSD and xLSTM decode states, the encoded memory) are replicated DTensors:
+the JAX launcher places none of them. The results come back as plain
+tensors. ``launch.mesh.check_mesh_arch`` refuses a layer kind that no
+test holds under a mesh.
 """
 
 from __future__ import annotations

@@ -11,10 +11,11 @@ It builds the training program the JAX launcher builds:
     device, and one device runs on plain tensors, so no mesh is made
     unless the caller passes one (``train(mesh=...)``);
   * under a mesh, the state placed by ``state_sharding``, each batch by
-    ``batch_sharding`` and the activation rules installed
-    (``distribution/sharding.py``), as DTensors; a mesh takes the dense
-    decoders only (``launch.mesh.check_mesh_arch``), the one family held
-    against the JAX package's sharded step so far;
+    ``batch_sharding`` (the frames or patches of a model that
+    cross-attends with it) and the activation rules installed
+    (``distribution/sharding.py``), as DTensors; every family of the ten
+    configs runs there, and ``launch.mesh.check_mesh_arch`` refuses a
+    layer kind that no test holds against the JAX package's sharded step;
   * the scheduler-planned gradient-reduction schedule
     (``backward_profile`` / ``plan_gradient_schedule``), logged as the
     JAX launcher logs it;

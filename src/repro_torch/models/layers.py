@@ -46,7 +46,11 @@ from repro_torch.models.flash import flash_attention
 
 __all__ = [
     "shard",
+    "row_placements",
+    "local_placements",
+    "to_local",
     "activation_sharding",
+    "under_current_rules",
     "rms_norm",
     "init_rms_norm",
     "init_linear",
@@ -82,13 +86,37 @@ def activation_sharding(rules: dict[str, Any]):
     own constants (RoPE tables, zeros, the default label mask) hold their
     full value on every rank. The JAX package's ``with mesh:`` gives its
     constants the same standing."""
+    with _installed(rules), implicit_replication() if rules else contextlib.nullcontext():
+        yield
+
+
+@contextlib.contextmanager
+def _installed(rules: dict[str, Any]):
+    """``rules`` as this thread's activation rules (``implicit_replication``
+    is a process-wide switch, left as it is)."""
     old = getattr(_TLS, "rules", None)
     _TLS.rules = rules
     try:
-        with implicit_replication() if rules else contextlib.nullcontext():
-            yield
+        yield
     finally:
         _TLS.rules = old
+
+
+def under_current_rules(fn):
+    """``fn``, run under this thread's activation rules whichever thread
+    calls it. A checkpointed function's recompute runs on autograd's
+    thread for a CUDA tensor's backward, where the rules installed here
+    are not, so its ``shard`` hooks would change nothing there: the
+    recomputed activations would be placed otherwise than the forward's,
+    and a local-shard function (the MoE dispatch's ``act_expert`` buffer)
+    would meet a placement it does not take."""
+    rules = _rules()
+
+    def run(*args):
+        with _installed(rules):
+            return fn(*args)
+
+    return run
 
 
 def shard(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -117,6 +145,40 @@ def _replicated_local(x: torch.Tensor) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def row_placements(x: DTensor) -> list:
+    """``x``'s batch split kept (the mesh dims that shard dim 0), every
+    other mesh dim replicated: the placements under which each rank holds
+    whole rows of its own batch shard."""
+    return [p if p.is_shard(0) else Replicate() for p in x.placements]
+
+
+def local_placements(rows: list, split: dict[int, int] | None = None) -> tuple[list, list]:
+    """For a value that every rank holds in full and uses only for its own
+    rows (``rows``, from :func:`row_placements`) and, on the mesh dims of
+    ``split`` (mesh dim -> tensor dim), only for its own slice of that
+    tensor dim: (the placements to take its local copy under, the
+    placements of that copy's gradient). The gradient is a ``Partial`` sum
+    over the mesh dims that split the batch (each rank's rows add their
+    share), the slice's ``Shard`` over the dims of ``split``, and
+    ``Replicate`` over the others, where every rank repeats the same work
+    (declaring those ``Partial`` would count the gradient once a rank)."""
+    split = split or {}
+    fwd = [Shard(split[i]) if i in split else Replicate() for i in range(len(rows))]
+    grad = [Shard(split[i]) if i in split else Partial() if p.is_shard(0) else Replicate()
+            for i, p in enumerate(rows)]
+    return fwd, grad
+
+
+def to_local(t: torch.Tensor, fwd: list, grad: list | None = None) -> torch.Tensor:
+    """This rank's local tensor of ``t`` placed as ``fwd``, its gradient
+    declared as ``grad`` (the default: ``fwd``'s, right when each rank's
+    local result is its own shard or a repeat of the same work); a plain
+    tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, fwd).to_local(grad_placements=grad)
 
 
 def _cache_storage(cache: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig, layer_kinds, layer_period
 from repro_torch.models.layers import (
+    _cache_storage,
+    _replicated_local,
     attention,
     decode_attention,
     embed,
@@ -63,6 +65,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_tables,
     shard,
+    under_current_rules,
     unembed,
 )
 
@@ -109,9 +112,11 @@ def _unstack(tree: Any, n: int) -> list:
 
 def _remat(fn: Callable, *args):
     """``fn(*args)``, recomputed in the backward pass when gradients are on
-    (the JAX package's ``jax.checkpoint``); the same values either way."""
+    (the JAX package's ``jax.checkpoint``); the same values either way.
+    The recompute runs under the forward's activation rules, as
+    ``jax.checkpoint``'s runs under the forward's sharding constraints."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(under_current_rules(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -295,9 +300,36 @@ def _decode_mixer(lp, cfg: ModelConfig, mixer: str, x, pos: int, mc, rep: int, m
     if mixer not in _RECURRENT:
         raise ValueError(mixer)
     key, _, step = _RECURRENT[mixer]
+    if isinstance(h, DTensor):
+        return x + _replicated_decode(step, lp[key], cfg, h, mc, rep)
     y, state = step(lp[key], cfg, h, _take(mc, rep))
     _store(mc, rep, state)
     return x + y
+
+
+def _map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _replicated_decode(step: Callable, p, cfg: ModelConfig, h: DTensor, mc, rep: int) -> DTensor:
+    """One recurrent decode step under a mesh, on each rank's full copy:
+    the parameters and ``h`` gathered, the state read from and written into
+    the replicated cache's local storage (a cache placed otherwise raises,
+    as ``layers.decode_attention``'s does), the output a replicated DTensor.
+    On DTensor ops the step's projections come out as ``Partial`` sums
+    over 'model', and DTensor casts a ``Partial`` leaf by leaf (torch 2.13's
+    ``_to_copy`` strategy keeps it ``Partial``), so the bf16 SSD conv
+    buffer took each rank's partial sum rounded to bf16: a bf16 step from
+    the reference's rounding of the whole sum."""
+    mesh = h.device_mesh
+    local = _map(_cache_storage, mc)
+    y, state = step(_map(_replicated_local, p), cfg, _replicated_local(h), _take(local, rep))
+    _store(local, rep, state)
+    return DTensor.from_local(y, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 # --------------------------------------------------------------------------

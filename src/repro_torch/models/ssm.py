@@ -12,6 +12,13 @@ sLSTM is sequential, a Python loop over time around the cell
 None of these loops is a kernel of the JAX package (no ``pallas_call``):
 they run as PyTorch ops here, on the card as on the CPU.
 
+Under a mesh (``u`` a DTensor) the projections, the gated norms and the
+output projections run as DTensor ops, and the scans on each rank's local
+rows and heads (:func:`_sharded_ssd`, :func:`_sharded_mlstm`, the sLSTM's
+time loop), each local input's gradient declared as
+``layers.local_placements`` says. A decode step under a mesh runs on each
+rank's full copy (``lm._replicated_decode``).
+
 Rounding points kept from the JAX package:
   * SSD's decay matrix and ``C . B`` stay in float32 (``ssm.py:112-114``);
   * ``k / np.sqrt(P)`` in the mLSTM is float32 in JAX whatever ``k``'s
@@ -28,9 +35,19 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _normal, init_linear, init_rms_norm, linear, rms_norm
+from repro_torch.models.layers import (
+    _normal,
+    init_linear,
+    init_rms_norm,
+    linear,
+    local_placements,
+    rms_norm,
+    row_placements,
+    to_local,
+)
 
 Params = dict[str, Any]
 
@@ -163,20 +180,79 @@ def ssd_forward(
     init_state: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full SSD mixer; returns (output [B, S, d], final ssm state)."""
-    B, S, _ = u.shape
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
     z, x, Bm, Cm, dt = _split_ssd(cfg, params, u)
-    x = F.silu(_causal_conv(x, params["conv_w"], params["conv_b"]))
-    dt = F.softplus(dt.to(F32) + params["dt_bias"])  # [B,S,H]
-    A = -torch.exp(params["A_log"])  # [H]
+    if isinstance(u, DTensor):
+        y, state = _sharded_ssd(params, cfg, u, x, Bm, Cm, dt, init_state)
+    else:
+        y, state = _ssd_core(params, cfg, x, Bm, Cm, dt, init_state)
+    y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)
+    return linear(params["out_proj"], y), state
+
+
+def _ssd_core(p: Params, cfg: ModelConfig, x, Bm, Cm, dt, init_state):
+    """The conv, the gates and the scan of :func:`ssd_forward` on plain
+    tensors of any number of heads (``dt``'s last dim; ``p`` holds their
+    ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log`` and ``D``): (y [B, S,
+    H * P] before the gated norm, final state [B, H, P, N])."""
+    B, S, di = x.shape
+    H, P = dt.shape[-1], cfg.ssm_head_dim
+    x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])  # [B,S,H]
+    A = -torch.exp(p["A_log"])  # [H]
     a = dt * A  # log decay
     xh = x.reshape(B, S, H, P)
     x_dt = xh * dt[..., None].to(x.dtype)
     y, state = ssd_scan(x_dt, a, Bm, Cm, cfg.ssm_chunk, init_state)
-    y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, cfg.d_inner)
-    y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return linear(params["out_proj"], y), state
+    y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
+    return y.reshape(B, S, di), state
+
+
+def _head_split(mesh, rows: list, n_heads: int) -> dict[int, int]:
+    """The mesh dims that split the heads (mesh dim -> 2, the heads' dim of
+    [B, S, H, ...]): those that do not split the batch, outer first, while
+    the product of their extents divides ``n_heads``."""
+    out, n = {}, 1
+    for i, p in enumerate(rows):
+        if not p.is_shard(0) and n_heads % (n * mesh.size(i)) == 0:
+            out[i] = 2
+            n *= mesh.size(i)
+    return out
+
+
+def _heads_placements(rows: list, heads: dict[int, int], dim: int) -> list:
+    """``rows`` with the heads' mesh dims splitting tensor dim ``dim``."""
+    return [Shard(dim) if i in heads else p for i, p in enumerate(rows)]
+
+
+def _sharded_ssd(params: Params, cfg: ModelConfig, u: DTensor, x, Bm, Cm, dt, init_state):
+    """:func:`_ssd_core` of DTensors, on each rank's rows and heads.
+
+    The batch follows ``u``'s split and the heads 'model' (as ``wx``'s
+    columns split ``d_inner``, a whole number of heads a rank); ``dt``,
+    ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log`` and ``D`` are sliced to
+    the rank's heads, and ``Bm`` / ``Cm``, shared across heads, are
+    whole on every rank (their gradient a ``Partial`` sum over the heads'
+    ranks). Each (row, head) of the conv and the scan is independent, so
+    the local result is exact; the output is a DTensor split as its
+    inputs, which the gated norm reduces across 'model' as DTensor ops.
+    The scan is written out on local tensors because DTensor's strategies
+    are op by op: its chunk loop and cumulative sums would each pay
+    DTensor's host time (and a redistribution where a strategy wants one)."""
+    mesh = u.device_mesh
+    rows = row_placements(u)
+    heads = _head_split(mesh, rows, cfg.ssm_heads)
+    pl = _heads_placements(rows, heads, 2)
+    shared = [Partial() if i in heads else p for i, p in enumerate(rows)]
+    xl, dtl = to_local(x, pl), to_local(dt, pl)
+    Bl, Cl = to_local(Bm, rows, shared), to_local(Cm, rows, shared)
+    p = {}
+    for key, dim in (("conv_w", 1), ("conv_b", 0), ("dt_bias", 0), ("A_log", 0), ("D", 0)):
+        p[key] = to_local(params[key], *local_placements(rows, {i: dim for i in heads}))
+    state_pl = _heads_placements(rows, heads, 1)
+    st = None if init_state is None else to_local(init_state, state_pl)
+    y, state = _ssd_core(p, cfg, xl, Bl, Cl, dtl, st)
+    return (DTensor.from_local(y, mesh, pl, run_check=False),
+            DTensor.from_local(state, mesh, state_pl, run_check=False))
 
 
 def ssd_init_state(cfg: ModelConfig, batch: int, device=None) -> dict[str, torch.Tensor]:
@@ -251,13 +327,33 @@ def mlstm_forward(
     di = cfg.d_inner
     P = di // H
     xz = linear(params["up"], u)
+    if isinstance(xz, DTensor):
+        # ``up``'s column split puts x and z on different ranks: gather the
+        # columns before the slice.
+        xz = xz.redistribute(xz.device_mesh, row_placements(xz))
     x, z = xz[..., :di], xz[..., di:]
     q = linear(params["wq"], x).reshape(B, S, H, P)
-    k = linear(params["wk"], x).reshape(B, S, H, P).to(F32) / math.sqrt(P)
+    k = linear(params["wk"], x).reshape(B, S, H, P)
     v = linear(params["wv"], x).reshape(B, S, H, P)
     gif = linear(params["wif"], x).to(F32)
-    log_i = gif[..., :H]                       # [B,S,H]
-    log_f = F.logsigmoid(gif[..., H:])         # [B,S,H]
+    gi, gf = gif[..., :H], gif[..., H:]
+    if isinstance(u, DTensor):
+        h, state = _sharded_mlstm(u, q, k, v, gi, gf)
+    else:
+        h, state = _mlstm_core(q, k, v, gi, gf)
+    h = h.reshape(B, S, di)
+    h = rms_norm(params["norm"], h, cfg.norm_eps) * F.silu(z)
+    return linear(params["down"], h), state
+
+
+def _mlstm_core(q, k, v, gi, gf) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The parallel form on plain tensors q, k, v [B, S, H, P] and the gate
+    logits [B, S, H] (float32): (h [B, S, H, P] in q's type, final
+    state)."""
+    P = q.shape[-1]
+    k = k.to(F32) / math.sqrt(P)
+    log_i = gi                                 # [B,S,H]
+    log_f = F.logsigmoid(gf)                   # [B,S,H]
 
     # D[i,j] = sum_{t=j+1..i} log_f_t + log_i_j  (i >= j)
     fseg = _segsum(log_f.permute(0, 2, 1))     # [B,H,S,S]
@@ -270,10 +366,7 @@ def mlstm_forward(
     num = torch.einsum("bhij,bjhp->bihp", Wqk, v.to(F32))
     den = Wqk.sum(dim=-1)
     den = torch.maximum(den.abs(), torch.exp(-m[..., 0]))
-    h = (num / den.permute(0, 2, 1)[..., None]).to(u.dtype)  # [B,S,H,P]
-    h = h.reshape(B, S, di)
-    h = rms_norm(params["norm"], h, cfg.norm_eps) * F.silu(z)
-    out = linear(params["down"], h)
+    h = (num / den.permute(0, 2, 1)[..., None]).to(q.dtype)  # [B,S,H,P]
 
     # Final recurrent state (for decode continuation after prefill).
     cum_f = torch.cumsum(log_f, dim=1)  # [B,S,H]
@@ -282,8 +375,24 @@ def mlstm_forward(
     vf = v.to(F32)
     C = torch.einsum("bsh,bshp,bshq->bhpq", w_last, k, vf)
     n = torch.einsum("bsh,bshp->bhp", w_last, k)
-    state = {"C": C, "n": n, "m": logw.amax(dim=1)}
-    return out, state
+    return h, {"C": C, "n": n, "m": logw.amax(dim=1)}
+
+
+def _sharded_mlstm(u: DTensor, q, k, v, gi, gf):
+    """:func:`_mlstm_core` of DTensors on each rank's rows and heads (the
+    parallel form is independent per (row, head), so the local result is
+    exact): h split as q, the state over the same rows and heads. Written
+    out on local tensors because DTensor has no strategy for the backward
+    of ``logsigmoid`` (``aten.log_sigmoid_backward``, torch 2.13)."""
+    mesh = u.device_mesh
+    rows = row_placements(u)
+    heads = _head_split(mesh, rows, q.shape[2])
+    pl = _heads_placements(rows, heads, 2)
+    h, state = _mlstm_core(*(to_local(t, pl) for t in (q, k, v, gi, gf)))
+    state_pl = _heads_placements(rows, heads, 1)
+    return (DTensor.from_local(h, mesh, pl, run_check=False),
+            {key: DTensor.from_local(t, mesh, state_pl, run_check=False)
+             for key, t in state.items()})
 
 
 def mlstm_init_state(cfg: ModelConfig, batch: int, device=None) -> dict[str, torch.Tensor]:
@@ -343,11 +452,12 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype=F32) -> Params:
     }
 
 
-def _slstm_cell(params: Params, d: int, gx_t: torch.Tensor, carry):
+def _slstm_cell(wh: Params, d: int, gx_t: torch.Tensor, carry):
     """One sLSTM step. carry = (c, n, m, h); gx_t = precomputed W_x x_t.
-    Only the recurrent W_h h_{t-1} is inside the time loop."""
+    Only the recurrent W_h h_{t-1} (``wh``, the recurrent linear's
+    parameters) is inside the time loop."""
     c, n, m, h = carry
-    g = (gx_t + linear(params["wh"], h)).to(F32)
+    g = (gx_t + linear(wh, h)).to(F32)
     zt = torch.tanh(g[..., :d])
     it = g[..., d : 2 * d]
     ft = g[..., 2 * d : 3 * d]
@@ -374,19 +484,42 @@ def _slstm_out(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tenso
 def slstm_forward(
     params: Params, cfg: ModelConfig, u: torch.Tensor
 ) -> tuple[torch.Tensor, tuple]:
-    B, S, d = u.shape
-    carry = (
-        torch.zeros((B, d), dtype=F32, device=u.device),
-        torch.zeros((B, d), dtype=F32, device=u.device),
-        torch.full((B, d), -1e30, dtype=F32, device=u.device),
-        torch.zeros((B, d), dtype=u.dtype, device=u.device),
-    )
     gx = linear(params["wx"], u)  # [B, S, 4d]: hoisted input projection
+    if not isinstance(u, DTensor):
+        hs, carry = _slstm_scan(params["wh"], gx)
+        return _slstm_out(params, cfg, hs), carry
+    # Under a mesh the time loop runs on plain local tensors: the gate
+    # inputs and ``wh`` gathered to full width once a layer, this rank's
+    # rows of the batch, and every rank that shares those rows repeating
+    # the loop (so the gathered tensors' gradients are Replicate over its
+    # other mesh dims, and ``wh``'s a Partial sum over the batch's). A loop
+    # of DTensor ops would pay DTensor's host time on every op of every
+    # step.
+    mesh = u.device_mesh
+    rows = row_placements(u)
+    wh = {key: to_local(w, *local_placements(rows)) for key, w in params["wh"].items()}
+    hs, carry = _slstm_scan(wh, to_local(gx, rows))
+    hs = DTensor.from_local(hs, mesh, rows, run_check=False)
+    carry = tuple(DTensor.from_local(t, mesh, rows, run_check=False) for t in carry)
+    return _slstm_out(params, cfg, hs), carry
+
+
+def _slstm_scan(wh: Params, gx: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+    """The sLSTM time loop over plain gate inputs gx [B, S, 4d] from a zero
+    state: (h [B, S, d], final carry)."""
+    B, S, d4 = gx.shape
+    d = d4 // 4
+    carry = (
+        torch.zeros((B, d), dtype=F32, device=gx.device),
+        torch.zeros((B, d), dtype=F32, device=gx.device),
+        torch.full((B, d), -1e30, dtype=F32, device=gx.device),
+        torch.zeros((B, d), dtype=gx.dtype, device=gx.device),
+    )
     hs = []
     for t in range(S):
-        carry, h_t = _slstm_cell(params, d, gx[:, t], carry)
+        carry, h_t = _slstm_cell(wh, d, gx[:, t], carry)
         hs.append(h_t)
-    return _slstm_out(params, cfg, torch.stack(hs, dim=1)), carry
+    return torch.stack(hs, dim=1), carry
 
 
 def slstm_init_state(cfg: ModelConfig, batch: int, device=None) -> tuple:
@@ -406,7 +539,7 @@ def slstm_decode_step(
     x_t = u[:, 0]
     gx_t = linear(params["wx"], x_t)
     c, n, m, h = state
-    carry, h_new = _slstm_cell(params, d, gx_t, (c, n, m, h.to(x_t.dtype)))
+    carry, h_new = _slstm_cell(params["wh"], d, gx_t, (c, n, m, h.to(x_t.dtype)))
     out = _slstm_out(params, cfg, h_new[:, None, :])
     c, n, m, hh = carry
     return out, (c, n, m, hh.to(torch.bfloat16))

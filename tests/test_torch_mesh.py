@@ -59,17 +59,19 @@ PLACED = {
 # Ranks
 # --------------------------------------------------------------------------
 
-def _spawn(job: str, world: int, d: Path) -> None:
-    """Run ``_job_<job>(rank, world, d)`` on ``world`` gloo ranks and wait
-    for all of them (killing any left at the time limit)."""
+def _spawn(job: str, world: int, d: Path, module: str = "test_torch_mesh",
+           timeout: float = TIMEOUT) -> None:
+    """Run ``module``'s ``_job_<job>(rank, world, d)`` on ``world`` gloo
+    ranks and wait for all of them (killing any left at the time limit)."""
     code = (f"import sys; sys.path.insert(0, {str(ROOT / 'tests')!r}); "
-            "import test_torch_mesh as t; t._rank_main(sys.argv[1:])")
+            f"import test_torch_mesh as t; t._rank_main(sys.argv[1:], {module!r})")
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
     logs = [open(d / f"{job}_rank{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, "-c", code, job, str(r), str(world), str(d)],
+    procs = [subprocess.Popen([sys.executable, "-c", code, job, str(r), str(world), str(d),
+                               str(timeout)],
                               env=env, stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(world)]
-    deadline = time.monotonic() + TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -84,15 +86,21 @@ def _spawn(job: str, world: int, d: Path) -> None:
         assert p.returncode == 0, (d / f"{job}_rank{r}.log").read_text()[-4000:]
 
 
-def _rank_main(argv: list[str]) -> None:
+def _rank_main(argv: list[str], module: str = "test_torch_mesh") -> None:
+    import importlib
+
     import torch.distributed as dist
 
+    import faulthandler
+
     job, rank, world, d = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
+    # Each thread's stack into the rank's log shortly before the time limit.
+    faulthandler.dump_traceback_later(max(1.0, float(argv[4]) - 10.0))
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(str(d / f"{job}.store"), world),
                             rank=rank, world_size=world)
     try:
-        globals()[f"_job_{job}"](rank, world, d)
+        getattr(importlib.import_module(module), f"_job_{job}")(rank, world, d)
     finally:
         dist.destroy_process_group()
 
@@ -254,23 +262,20 @@ def _job_serve(rank: int, world: int, d: Path) -> None:
 # --------------------------------------------------------------------------
 
 _JAX_REF = """
-import json, sys
+import dataclasses, json, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
 from repro.checkpoint import ckpt
 from repro.configs import smoke_config
 from repro.distribution.sharding import activation_rules, batch_sharding, state_sharding
+from repro.models import moe as moe_mod
 from repro.models.layers import activation_sharding
 from repro.models.lm import build_model
 from repro.optim.adamw import AdamWConfig
 from repro.runtime.steps import build_train_step, make_train_state
 
-d = sys.argv[1]
-arch, opt, placed = sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4])
+cases, opt, placed = json.loads(sys.argv[1]), json.loads(sys.argv[2]), json.loads(sys.argv[3])
 assert len(jax.devices()) == 4
-model = build_model(smoke_config(arch), compute_dtype=jnp.float32)
-batches = np.load(d + "/batches.npz")
-step = jax.jit(build_train_step(model, AdamWConfig(**opt), n_micro=2))
 mesh = Mesh(np.asarray(jax.devices()).reshape(2, 2), ("data", "model"))
 
 def index_map(sharding, shape):
@@ -281,49 +286,86 @@ def index_map(sharding, shape):
         out[where] = [list(s.indices(n)[:2]) for s, n in zip(idx, shape)]
     return out
 
-out = {}
-mesh3 = Mesh(np.asarray(jax.devices()).reshape(2, 2, 1), ("pod", "data", "model"))
-b = {"tokens": jnp.asarray(batches["tokens0"])}
-out["pod_tokens"] = index_map(batch_sharding(b, mesh3)["tokens"], b["tokens"].shape)
-for name, ctx in (("jax1", None), ("jax22", mesh)):
-    state = make_train_state(model, jax.random.PRNGKey(0))
-    metrics = []
-    if ctx is None:
-        for i in range(2):
-            b = {k: jnp.asarray(batches[k + str(i)]) for k in ("tokens", "labels")}
-            state, m = step(state, b)
-            metrics.append({k: float(v) for k, v in m.items()})
-    else:
-        with activation_sharding(activation_rules(mesh)), mesh:
-            st_sh = state_sharding(jax.eval_shape(lambda: state), mesh)
-            state = jax.device_put(state, st_sh)
-            paths = {jax.tree_util.keystr(p): s
-                     for p, s in jax.tree_util.tree_flatten_with_path(st_sh)[0]}
-            shapes = {jax.tree_util.keystr(p): leaf.shape
-                      for p, leaf in jax.tree_util.tree_flatten_with_path(state)[0]}
-            for k, path in placed.items():
-                out[k] = index_map(paths[path], shapes[path])
+# The pairs each MoE call drops, counted from the reference's own routing
+# (its top_k, capacity and cumulative sum) beside its moe_ffn.
+drops = []
+moe_ffn = moe_mod.moe_ffn
+
+def counted(params, x, n_experts, top_k, capacity_factor=1.25, normalize=True):
+    T = x.shape[0] * x.shape[1]
+    logits = (x.reshape(T, -1) @ params["router"]["w"].astype(x.dtype)).astype(jnp.float32)
+    _, idx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), top_k)
+    cap = max(int(np.ceil(T * top_k / n_experts * capacity_factor)), top_k)
+    flat = idx.reshape(-1)
+    pos = jnp.take_along_axis(jnp.cumsum(jax.nn.one_hot(flat, n_experts, dtype=jnp.int32), 0) - 1,
+                              flat[:, None], axis=1)
+    jax.debug.callback(lambda n: drops.append(int(n)), jnp.sum(pos >= cap))
+    return moe_ffn(params, x, n_experts, top_k, capacity_factor, normalize)
+
+for d, arch, over in cases:
+    cfg = dataclasses.replace(smoke_config(arch), **over)
+    model = build_model(cfg, compute_dtype=jnp.float32)
+    batches = np.load(d + "/batches.npz")
+    keys = [k for k in ("tokens", "labels", "memory") if k + "0" in batches]
+    step = jax.jit(build_train_step(model, AdamWConfig(**opt), n_micro=2))
+    out = {}
+    if placed:
+        mesh3 = Mesh(np.asarray(jax.devices()).reshape(2, 2, 1), ("pod", "data", "model"))
+        b = {"tokens": jnp.asarray(batches["tokens0"])}
+        out["pod_tokens"] = index_map(batch_sharding(b, mesh3)["tokens"], b["tokens"].shape)
+    for name, ctx in (("jax1", None), ("jax22", mesh)):
+        state = make_train_state(model, jax.random.PRNGKey(0))
+        metrics = []
+        if ctx is None:
             for i in range(2):
-                b = {k: jnp.asarray(batches[k + str(i)]) for k in ("tokens", "labels")}
-                b = jax.device_put(b, batch_sharding(b, mesh))
-                if i == 0:
-                    out["tokens"] = index_map(b["tokens"].sharding, b["tokens"].shape)
+                b = {k: jnp.asarray(batches[k + str(i)]) for k in keys}
                 state, m = step(state, b)
                 metrics.append({k: float(v) for k, v in m.items()})
-    ckpt.save(d + "/" + name, 2, jax.tree.map(np.asarray, state))
-    with open(d + "/" + name + ".json", "w") as f:
-        json.dump(metrics, f)
-with open(d + "/placement.json", "w") as f:
-    json.dump(out, f)
+        else:
+            with activation_sharding(activation_rules(mesh)), mesh:
+                st_sh = state_sharding(jax.eval_shape(lambda: state), mesh)
+                state = jax.device_put(state, st_sh)
+                paths = {jax.tree_util.keystr(p): s
+                         for p, s in jax.tree_util.tree_flatten_with_path(st_sh)[0]}
+                shapes = {jax.tree_util.keystr(p): leaf.shape
+                          for p, leaf in jax.tree_util.tree_flatten_with_path(state)[0]}
+                for k, path in placed.items():
+                    out[k] = index_map(paths[path], shapes[path])
+                for i in range(2):
+                    b = {k: jnp.asarray(batches[k + str(i)]) for k in keys}
+                    b = jax.device_put(b, batch_sharding(b, mesh))
+                    if i == 0 and placed:
+                        out["tokens"] = index_map(b["tokens"].sharding, b["tokens"].shape)
+                    state, m = step(state, b)
+                    metrics.append({k: float(v) for k, v in m.items()})
+        ckpt.save(d + "/" + name, 2, jax.tree.map(np.asarray, state))
+        with open(d + "/" + name + ".json", "w") as f:
+            json.dump(metrics, f)
+    if cfg.n_experts:
+        # Micro-batch 0 of the first step, eagerly from the initial state.
+        moe_mod.moe_ffn = counted
+        drops.clear()
+        b = {k: jnp.asarray(batches[k + "0"][:len(batches[k + "0"]) // 2]) for k in keys}
+        jax.block_until_ready(model.forward(make_train_state(model, jax.random.PRNGKey(0)).params,
+                                            b["tokens"], b.get("memory")))
+        jax.effects_barrier()
+        moe_mod.moe_ffn = moe_ffn
+        out["dropped"] = sum(drops)
+    with open(d + "/placement.json", "w") as f:
+        json.dump(out, f)
 """
 
 
-def _start_jax_reference(d: Path) -> subprocess.Popen:
+def _start_jax_reference(cases: list, placed: dict, opt: dict = OPT) -> subprocess.Popen:
+    """The JAX package's two steps, one device and the (2, 2) mesh, for each
+    ``[directory, arch, config overrides]`` of ``cases`` (its batches and
+    checkpoints in that directory), in one subprocess of 4 forced host
+    devices; its log is the first directory's ``jax_ref.log``."""
     env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
-    log = open(d / "jax_ref.log", "w")
-    p = subprocess.Popen([sys.executable, "-c", _JAX_REF, str(d), ARCH, json.dumps(OPT),
-                          json.dumps(PLACED)], env=env, stdout=log, stderr=subprocess.STDOUT)
+    log = open(Path(cases[0][0]) / "jax_ref.log", "w")
+    p = subprocess.Popen([sys.executable, "-c", _JAX_REF, json.dumps(cases), json.dumps(opt),
+                          json.dumps(placed)], env=env, stdout=log, stderr=subprocess.STDOUT)
     log.close()
     return p
 
@@ -369,7 +411,7 @@ def test_sharded_steps_match_one_process_and_the_reference_sharded_step(tmp_path
     jm = j_build_model(j_smoke_config(ARCH), compute_dtype=jnp.float32)
     j_ckpt.save(str(tmp_path / "init"), 0,
                 jax.tree.map(np.asarray, j_make_train_state(jm, jax.random.PRNGKey(0))))
-    ref = _start_jax_reference(tmp_path)
+    ref = _start_jax_reference([[str(tmp_path), ARCH, {}]], PLACED)
     try:
         _spawn("train", 4, tmp_path)
         # The port in one process, from the same checkpoint.

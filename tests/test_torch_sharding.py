@@ -205,22 +205,110 @@ def test_production_mesh_under_a_fake_world():
     assert lines[4] == "(1, 4)"
 
 
+@pytest.fixture(scope="module")
+def local_mesh():
+    """A (1, 1) mesh over a one-rank gloo group (an in-process store), the
+    group destroyed after this module's tests if they started it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    started = not dist.is_initialized()
+    yield make_local_mesh(device="cpu")
+    if started:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_mesh_takes_dense_decoders_only(arch):
-    """``train`` and ``serve_model`` refuse a mesh for a family whose mesh
-    route has not been held against the JAX package's sharded step (MoE,
-    SSD, xLSTM, encoder, cross-attention), before any work; the dense
-    decoders pass the check."""
+def test_mesh_takes_every_arch(arch, local_mesh):
+    """``check_mesh_arch`` passes every config, and on a one-rank gloo mesh
+    one smoke training step (float32 compute, batch 2 x 16, the memory
+    where the config has one) and a 4-token serve equal the route without
+    a mesh: the loss, grad norm and the state after the step at
+    ``tests/test_torch_train.py``'s ``STEP_BARS["float32"]``, the tokens
+    equal."""
+    import numpy as np
+    from test_torch_mesh import _max_err
+    from test_torch_train import STEP_BARS
+
+    from repro_torch.interop import train_state_to_arrays
     from repro_torch.launch.mesh import check_mesh_arch
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.steps import build_train_step
+
+    cfg = smoke_config(arch)
+    check_mesh_arch(cfg)
+    model = build_model(cfg, compute_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    memory = None
+    if cfg.n_enc_layers or cfg.cross_attn_every:
+        T = 16 if cfg.n_enc_layers else cfg.n_patches
+        memory = torch.from_numpy(rng.standard_normal((2, T, cfg.d_model)).astype(np.float32))
+        batch["memory"] = memory
+    step = build_train_step(model, AdamWConfig(warmup_steps=2, total_steps=10), n_micro=1)
+    plain, want = step(make_train_state(model, 0, device="cpu"), batch)
+    state = make_train_state(model, 0, device="cpu")
+    with activation_sharding(TS.activation_rules(local_mesh)):
+        state = TS.distribute(state, TS.state_sharding(state, local_mesh))
+        state, got = step(state, TS.distribute(batch, TS.batch_sharding(batch, local_mesh)))
+    p_bar, m_bar, v_bar, _, n_bar = STEP_BARS["float32"]
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(got["grad_norm"]), float(want["grad_norm"]), rtol=n_bar)
+    a, b = train_state_to_arrays(TS.gather(state)), train_state_to_arrays(plain)
+    assert _max_err(a["params"], b["params"]) <= p_bar
+    assert _max_err(a["opt"]["m"], b["opt"]["m"]) <= m_bar
+    assert _max_err(a["opt"]["v"], b["opt"]["v"]) <= v_bar
+
+    params = model.init(0, device="cpu")
+    prompts = batch["tokens"][:, :4].long()
+    served = serve_model(model, params, prompts, 4, memory=memory, mesh=local_mesh)
+    assert torch.equal(served.tokens, serve_model(model, params, prompts, 4, memory=memory).tokens)
+
+
+def test_mesh_refuses_a_layer_kind_no_test_holds(monkeypatch):
+    """A layer kind outside ``MESH_MIXERS`` x ``MESH_FFNS`` (here a made-up
+    mixer) is refused by ``check_mesh_arch``, and by ``train`` and
+    ``serve_model`` before any work."""
+    from repro_torch.launch import mesh as tmesh
     from repro_torch.launch.serve import serve_model
     from repro_torch.launch.train import train
 
-    cfg = smoke_config(arch)
-    if cfg.family == "dense":
-        check_mesh_arch(cfg)
-        return
+    cfg = smoke_config("llama3_2_3b")
+    tmesh.check_mesh_arch(cfg)
+    monkeypatch.setattr(tmesh, "layer_kinds", lambda cfg: [("attn", "mlp"), ("rwkv", "mlp")])
     with pytest.raises(NotImplementedError, match="under a mesh"):
-        train(arch, 1, 2, 8, 1, device="cpu", log=lambda *_: None, mesh=object())
+        tmesh.check_mesh_arch(cfg)
+    with pytest.raises(NotImplementedError, match="under a mesh"):
+        train("llama3.2-3b", 1, 2, 8, 1, device="cpu", log=lambda *_: None, mesh=object())
     with pytest.raises(NotImplementedError, match="under a mesh"):
         serve_model(build_model(cfg), None, torch.zeros((1, 2), dtype=torch.long), 1,
                     mesh=object())
+    assert "rwkv" not in tmesh.MESH_MIXERS
+
+
+def test_recompute_on_another_thread_keeps_the_rules(local_mesh):
+    """The activation rules are this thread's; a checkpointed function's
+    recompute runs on autograd's thread for a CUDA backward.
+    ``under_current_rules`` carries the caller's rules to any thread, where
+    the bare function's ``shard`` hook would change nothing."""
+    import threading
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models.layers import activation_sharding, shard, under_current_rules
+
+    x = DTensor.from_local(torch.zeros((2, 3, 4, 8)), local_mesh, [Replicate(), Replicate()])
+    got = {}
+    with activation_sharding(TS.activation_rules(local_mesh)):
+        for name, fn in (("bare", lambda t: shard(t, "act_heads")),
+                         ("carried", under_current_rules(lambda t: shard(t, "act_heads")))):
+            th = threading.Thread(target=lambda n=name, f=fn: got.__setitem__(n, f(x)))
+            th.start()
+            th.join(timeout=60)
+            assert not th.is_alive()
+    assert got["bare"].placements == (Replicate(), Replicate())
+    assert got["carried"].placements == (Shard(0), Shard(2))
