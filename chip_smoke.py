@@ -40,7 +40,9 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      kernel, plain
      version and PyTorch's ``scaled_dot_product_attention`` (the
      yardstick; the port never calls it); each row also gives its share
-     of its bound and the host time of one wrapper call, a flash row its
+     of its bound and the host time of one wrapper call (through the
+     kernel operators, and with each operator's CUDA implementation called
+     directly, as the wrapper did before the operators), a flash row its
      TFLOP/s, and every decode row and the bf16 flash rows the device
      times alone (CUDA graphs of the calls) of kernel and SDPA;
   5b. serves llama3.2-3b at its full widths with seed-0 bf16 weights: 4
@@ -135,6 +137,19 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      mesh: tokens equal, the last prompt logits within max(0.05, 0.02 *
      n_layers), exact launch counts for each route, ms a decode step
      each; 9d records stage 2's card and chunk counts;
+  10. runs the dry run (``repro_torch.launch.dryrun``): 10a traces
+     llama3.2-3b's train_4k, prefill_32k and decode_32k cells on fake
+     tensors over a fake world of 256 ranks (16 x 16), in subprocesses on
+     the host's cores, each cell ``ok``, printing its per-device FLOPs,
+     bytes, collective bytes by kind, peak GiB and terms; 10b counts 8b's
+     training step and a 9c decode step (the cache placed by
+     ``cache_sharding``) under ``analyze_ops`` on the card's 1 x 1 mesh
+     with the kernels (the decode step's parameters bf16, as 9c serves),
+     and the same steps on fake tensors over a fake world of one, with
+     parameters of the same dtypes: FLOPs, HBM bytes, collective bytes and
+     each kernel operator's calls equal; 10c serves 9c's shape with the cache placed by
+     ``cache_sharding`` and with a replicated cache: tokens equal, decode
+     launches equal;
 
 and prints the kernel table and, as its last line,
 ``{"ok": true, "device": {...}}``. Every check raises on failure. It
@@ -293,6 +308,33 @@ VISION_CUT_LAYERS = 4  # 8e's kernels-against-plain arm: the fewest layers holdi
 # generated through the mesh route and the route without one.
 FAMILY_MESH_STEPS = 2
 FAMILY_MESH_PROMPT, FAMILY_MESH_GEN = 64, 8
+# Phase 10: the dry run. 10a traces llama3.2-3b's cells on the 16 x 16
+# fake world, one process a cell, all at once (a process holds one fake
+# world, and none may share phase 9's NCCL group); 10b traces 8b's training
+# step and a 9c decode step on the card and on a fake world of one; 10c
+# serves 9c's shape with the cache placed by cache_sharding against the
+# replicated one.
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT = 600
+_FAKE_TRACE = """
+import dataclasses, json, sys, torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import trace_step
+from repro_torch.launch.mesh import fake_world
+from repro_torch.models.lm import build_model
+
+arch, B, S, n_micro, Bd, T, pos = sys.argv[1], *map(int, sys.argv[2:8])
+fake_world(1)
+mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1), mesh_dim_names=("data", "model"))
+model = build_model(get_config(arch))
+out = {}
+for kind, b, s, kw in (("train", B, S, dict(n_micro=n_micro)),
+                       ("decode", Bd, T, dict(pos=pos, param_dtype=torch.bfloat16))):
+    cost, peak, _ = trace_step(model, kind, b, s, mesh, **kw)
+    out[kind] = dict(dataclasses.asdict(cost), peak=peak)
+print(json.dumps(out))
+"""
 
 
 def emit(tag: str, **fields) -> None:
@@ -373,6 +415,34 @@ def host_us(torch, fn, reps: int = 100) -> float:
     us = (time.perf_counter() - t) / reps * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def operator_host_us(torch, fn, rounds: int = 5) -> tuple[float, float]:
+    """Host microseconds per attention wrapper call ``fn`` through the
+    kernel operators (``repro_torch::*``: the dispatcher, then the CUDA
+    implementation), and with each operator replaced by its CUDA
+    implementation called directly (the wrapper as it was before the
+    operators: its checks, then the ctypes launch); the medians of
+    ``rounds`` alternating runs of ``host_us``."""
+    import statistics
+    import types
+
+    from repro_torch.kernels import attention as A
+
+    direct = types.SimpleNamespace(
+        flash_fwd=lambda q, k, v, c: A._flash_cuda(q, k, v, c, False),
+        flash_fwd_lse=lambda q, k, v, c: A._flash_cuda(q, k, v, c, True),
+        flash_bwd_delta=A._delta_cuda, flash_bwd_dkdv=A._dkdv_cuda, flash_bwd_dq=A._dq_cuda,
+        decode_attention=A._decode_cuda)
+    ops, via, raw = A._OPS, [], []
+    for _ in range(rounds):
+        via.append(host_us(torch, fn))
+        A._OPS = direct
+        try:
+            raw.append(host_us(torch, fn))
+        finally:
+            A._OPS = ops
+    return statistics.median(via), statistics.median(raw)
 
 
 def lb_inputs(np, torch, rng, B: int, n: int):
@@ -609,11 +679,12 @@ def flash_bwd_ptxas(log: str, lib) -> list[dict]:
 
 
 def flash_flops(q, k, causal: bool) -> int:
-    """4 * H * D flops per (query, key) pair, the causal triangle only."""
-    B, S, H, D = q.shape
-    T = k.shape[1]
-    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
-    return 4 * B * H * D * pairs
+    """The flash operator's FLOP formula, ``repro_torch.kernels.attention.
+    flash_flops``: 4 * H * D flops per (query, key) pair, the causal
+    triangle only."""
+    from repro_torch.kernels.attention import flash_flops as count
+
+    return count(q, k, causal)
 
 
 def decode_bound(torch, q, k, lens: list[int]) -> tuple[float, str]:
@@ -696,12 +767,17 @@ def attention_kernels(np, torch) -> dict:
         plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
         lib_ms, lib_err = library_ms(torch, lib)
         max_err[name] = max(max_err[name], err)
-        # Share of the bound, and the host time of one wrapper call.
-        extra = dict(share_of_bound=b[0] / ms, host_us_per_call=host_us(torch, kern))
+        # Share of the bound, and the host time of one wrapper call through
+        # the operators and with the CUDA implementation called directly.
+        via, direct = operator_host_us(torch, kern)
+        extra = dict(share_of_bound=b[0] / ms, host_us_per_call=via,
+                     host_us_per_call_direct=direct)
         if flops is not None:  # flash: the rate
             extra.update(tflop_s=flops / ms / 1e9)
         if int_kern is not None:  # decode with an int kv_len, as the serve step calls it
-            extra.update(host_us_per_call_int_kv_len=host_us(torch, int_kern))
+            via, direct = operator_host_us(torch, int_kern)
+            extra.update(host_us_per_call_int_kv_len=via,
+                         host_us_per_call_int_kv_len_direct=direct)
         if flops is None or shape["dtype"] == "torch.bfloat16":
             # The device times alone (no host between launches), SDPA's too:
             # every decode row, the bf16 flash rows.
@@ -1304,16 +1380,12 @@ def check_grad(torch, name, got, want, dtype, what) -> tuple[float, float]:
 
 
 def backward_flops(q, k, causal: bool) -> dict:
-    """Operations of the forward with lse, of each backward kernel and of
-    the backward pass: products of 2 D flops per (query row, key) pair and
-    head (the causal triangle only); the forward needs 2 products, dkdv 4
-    (S, dP, dV, dK), dq 3 (S, dP, dQ), the pass 5 (2.5x the forward's);
-    delta 2 D flops a row."""
-    B, S, H, D = q.shape
-    product = flash_flops(q, k, causal) // 2
-    return {"flash_attention_lse": 2 * product, "flash_bwd_delta": 2 * B * S * H * D,
-            "flash_bwd_dkdv": 4 * product, "flash_bwd_dq": 3 * product,
-            "backward_pass": 5 * product}
+    """The flash operators' FLOP formulas, ``repro_torch.kernels.attention.
+    backward_flops``: the forward with lse, each backward kernel and the
+    backward pass."""
+    from repro_torch.kernels.attention import backward_flops as count
+
+    return count(q, k, causal)
 
 
 def backward_bounds(torch, q, k, causal: bool) -> dict:
@@ -2005,6 +2077,155 @@ def mesh_phases(np, torch, kept8: dict, kept8e: dict) -> dict:
     dist.destroy_process_group()
     emit("mesh_phase", seconds=time.perf_counter() - t_phase)
     return {n: e for n, (e, _) in kern9.items()}
+
+
+def dry_run_phases(np, torch) -> None:
+    """10. The dry run. 10a: ``python -m repro_torch.launch.dryrun`` for
+    llama3.2-3b x train_4k, prefill_32k and decode_32k on the 16 x 16 fake
+    world (subprocesses on the host's cores, no card), each cell ``ok``,
+    its per-device counts and terms printed. 10b: 8b's training step and a
+    9c decode step (the cache placed by ``cache_sharding`` at the last
+    prompt position) traced under ``analyze_ops`` on the card's 1 x 1 mesh
+    with the kernels (the decode step's parameters bf16), and at the same
+    shapes and dtypes on fake tensors over a fake world of one: FLOPs, HBM
+    bytes, collective bytes and each kernel operator's calls equal. 10c: 9c's serve (4 x 64 tokens, 16 generated) with the cache
+    placed by ``cache_sharding`` against the replicated cache on the 1 x 1
+    mesh: tokens ``torch.equal``, decode launches equal."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.sharding import (
+        activation_rules,
+        batch_sharding,
+        cache_sharding,
+        distribute,
+        state_sharding,
+    )
+    from repro_torch.kernels import attention
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.op_analysis import analyze_ops
+    from repro_torch.launch.serve import _replicated
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.steps import build_serve_step, build_train_step, make_train_state
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    dec_T = MESH_PROMPT + MESH_GEN + 1
+    dec_pos = MESH_PROMPT - 1
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SERVE_ARCH, "--shape",
+         shape, "--out", str(build / f"dryrun_{shape}.json")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for shape in DRYRUN_SHAPES}
+    procs["fake_one"] = subprocess.Popen(
+        [sys.executable, "-c", _FAKE_TRACE, TRAIN_ARCH, *map(str, (
+            TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, MESH_BATCH, dec_T, dec_pos))],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    # -- 10b. the card's counts: 8b's step and a 9c decode step ----------------
+    mesh = make_local_mesh()
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    model = build_model(cfg)
+    rules = activation_rules(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    card = {}
+    with activation_sharding(rules):
+        state = make_train_state(model, 0, device="cuda")
+        state = distribute(state, state_sharding(state, mesh))
+        batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                                  device="cuda", dtype=torch.int32) for k in ("tokens", "labels")}
+        batch = distribute(batch, batch_sharding(batch, mesh))
+        step = build_train_step(model, AdamWConfig(), n_micro=TRAIN_MICRO)
+        card["train"], _ = analyze_ops(step, state, batch)
+        torch.cuda.synchronize()
+        del state, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init(0, device="cuda", dtype=torch.bfloat16)
+        placed_p = _replicated(params, mesh)
+        cache = dict(model.init_cache(MESH_BATCH, dec_T, device="cuda"), pos=dec_pos)
+        cache = distribute(cache, cache_sharding(cache, mesh))
+        token = torch.randint(0, cfg.vocab_size, (MESH_BATCH,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        token = distribute(token, batch_sharding(token, mesh))
+        card["decode"], _ = analyze_ops(build_serve_step(model), placed_p, cache, token)
+        torch.cuda.synchronize()
+
+    # -- 10c. the placed cache against the replicated one ---------------------
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT))).cuda()
+    step = build_serve_step(model)
+    served, launched = {}, {}
+    for route in ("placed", "replicated"):
+        for k in attention.launches:
+            attention.launches[k] = 0
+        with activation_sharding(rules):
+            cache = model.init_cache(MESH_BATCH, dec_T, device="cuda")
+            cache = (distribute(cache, cache_sharding(cache, mesh)) if route == "placed"
+                     else _replicated(cache, mesh))
+            fed = _replicated(prompts, mesh)
+            outs = []
+            t = time.perf_counter()
+            for i in range(MESH_PROMPT + MESH_GEN - 1):
+                logits, cache = step(placed_p, cache, fed[:, i] if i < MESH_PROMPT else outs[-1])
+                if i >= MESH_PROMPT - 1:
+                    outs.append(logits[:, 0].argmax(dim=-1))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t) / (MESH_PROMPT + MESH_GEN - 1)
+        served[route] = (torch.stack([o.full_tensor() for o in outs], dim=1), ms)
+        launched[route] = dict(attention.launches)
+    del params, placed_p, cache
+    torch.cuda.empty_cache()
+    check(torch.equal(served["placed"][0], served["replicated"][0]),
+          "10c: the placed cache's tokens differ from the replicated cache's")
+    want = {k: 0 for k in attention.launches}
+    want["decode_attention"] = (MESH_PROMPT + MESH_GEN - 1) * L
+    check(launched["placed"] == launched["replicated"] == want,
+          f"10c launches {launched}, expected {want}")
+    emit("placed_cache_serve", arch=cfg.name, mesh="1x1", batch=MESH_BATCH,
+         prompt=MESH_PROMPT, gen=MESH_GEN, tokens_equal=True,
+         ms_per_decode_step=served["placed"][1], ms_per_decode_step_replicated=served["replicated"][1],
+         launches=launched["placed"])
+
+    # -- 10a and 10b's fake side: wait for the processes ----------------------
+    fake = None
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        check(p.returncode == 0, f"10 {name} exited {p.returncode}: {(out or '')[-2000:]} {(err or '')[-2000:]}")
+        if name == "fake_one":
+            fake = json.loads(out.strip().splitlines()[-1])
+            continue
+        cell = json.loads((build / f"dryrun_{name}.json").read_text())[0]
+        check(cell["ok"] and cell["error"] is None, f"10a {name}: {cell['error']}")
+        emit("dryrun_cell", arch=cell["arch"], shape=cell["shape"], mesh=cell["mesh"],
+             flops_per_device=cell["flops"], bytes_per_device=cell["bytes_accessed"],
+             collective_bytes=cell["coll_bytes"],
+             peak_gib_per_device=cell["peak_memory_per_device"] / 2**30,
+             terms=cell["terms"], model_flops=cell["model_flops"], trace_s=cell["compile_s"])
+    for kind in ("train", "decode"):
+        c, f = card[kind], fake[kind]
+        same = (c.flops == f["flops"] and c.hbm_bytes == f["hbm_bytes"]
+                and c.collective_bytes == f["collective_bytes"]
+                and c.kernel_calls == f["kernel_calls"])
+        emit("dryrun_vs_card", step=kind, flops_card=c.flops, flops_fake=f["flops"],
+             collective_bytes_card=c.collective_bytes, collective_bytes_fake=f["collective_bytes"],
+             kernel_calls_card=c.kernel_calls, kernel_calls_fake=f["kernel_calls"],
+             hbm_bytes_card=c.hbm_bytes, hbm_bytes_fake=f["hbm_bytes"],
+             peak_gib_fake=f["peak"] / 2**30, equal=same)
+        check(same, f"10b {kind}: the card's counts differ from the fake trace's")
+    dist.destroy_process_group()
+    emit("dryrun_phase", seconds=time.perf_counter() - t_phase)
 
 
 def family_mesh_training(np, torch, mesh, kept8e: dict) -> None:
@@ -2853,6 +3074,9 @@ def main() -> int:
     for name, err in mesh_phases(np, torch, kept8, kept8e).items():
         table[name]["max_abs_err"] = max(table[name]["max_abs_err"], err)
     del kept8, kept8e
+
+    # -- 10. the dry run: fake tensors over a fake world ------------------------
+    dry_run_phases(np, torch)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],

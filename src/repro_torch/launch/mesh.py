@@ -25,7 +25,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig, layer_kinds
 
-__all__ = ["ensure_process_group", "make_production_mesh", "make_local_mesh",
+__all__ = ["ensure_process_group", "fake_world", "make_production_mesh", "make_local_mesh",
            "check_mesh_arch", "MESH_MIXERS", "MESH_FFNS"]
 
 
@@ -39,6 +39,23 @@ def ensure_process_group(device=None) -> None:
         return
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+
+
+def fake_world(n: int, rank: int = 0) -> None:
+    """Start a fake process group of ``n`` ranks in this process, as rank
+    ``rank``: collectives return at once, moving no data
+    (``torch.testing._internal.distributed.fake_pg.FakeStore``). The dry
+    run builds its production mesh on it, over ``device="cpu"`` (a fake
+    world has no card), and traces a step on fake tensors. An existing
+    group of another size raises: one process holds one world."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_world_size() != n or dist.get_backend() != "fake":
+            raise RuntimeError(f"a process group of {dist.get_world_size()} ranks "
+                               f"({dist.get_backend()}) exists; the fake world needs its own")
+        return
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=n)
 
 
 def _mesh(dev: torch.device, shape: tuple[int, ...], axes: tuple[str, ...]) -> DeviceMesh:

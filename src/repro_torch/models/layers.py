@@ -46,6 +46,8 @@ from repro_torch.models.flash import flash_attention
 
 __all__ = [
     "shard",
+    "split_heads",
+    "merge_heads",
     "row_placements",
     "local_placements",
     "to_local",
@@ -181,19 +183,124 @@ def to_local(t: torch.Tensor, fwd: list, grad: list | None = None) -> torch.Tens
     return t.redistribute(t.device_mesh, fwd).to_local(grad_placements=grad)
 
 
-def _cache_storage(cache: torch.Tensor) -> torch.Tensor:
-    """The storage that a decode step writes its new K/V row into: a
-    plain tensor, or a replicated DTensor's local copy (each rank holds
-    the whole cache). A cache placed any other way raises: the row would
-    land in a temporary gathered copy and later steps would read stale
-    rows."""
+def split_heads(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``t.reshape(shape)``, ``shape`` ending (heads, head_dim). A DTensor
+    whose last dim is split over mesh dims that do not divide the heads
+    (24 heads over 'model' 16) is first gathered over those dims: DTensor
+    cannot cut a split dim into heads a rank would hold a part of. The
+    JAX package's partitioner makes the same move where it must."""
+    if isinstance(t, DTensor):
+        last, n, mesh = t.ndim - 1, shape[-2], t.device_mesh
+        split = [i for i, p in enumerate(t.placements) if p.is_shard(last)]
+        if n % math.prod(mesh.size(i) for i in split):
+            t = t.redistribute(mesh, [Replicate() if i in split else p
+                                      for i, p in enumerate(t.placements)])
+    return t.reshape(shape)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """[..., heads, head_dim] -> [..., heads * head_dim], whose backward
+    cuts the gradient into heads through :func:`split_heads` (a plain view
+    would fail on a DTensor gradient split where the heads are not)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = tuple(x.shape)
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.shape)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[..., heads, head_dim] -> [..., heads * head_dim] (a reshape; see
+    :class:`_MergeHeads` for its gradient)."""
+    if isinstance(x, DTensor) and torch.is_grad_enabled() and x.requires_grad:
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh, dims: list) -> torch.Tensor:
+    """``t`` reduced (``"sum"`` or ``"max"``) over the mesh dims ``dims``,
+    by functional collectives (a dry run counts them)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for i in dims:
+        t = funcol.all_reduce(t, op, (mesh, i))
+    return funcol.wait_tensor(t) if dims else t
+
+
+def _placed_cache_write(cache: torch.Tensor, row: torch.Tensor, pos: int) -> torch.Tensor:
+    """Write the new row ``row`` [B, 1, KV, D] at ``pos`` into each rank's
+    own shard of ``cache`` [B, T, KV, D] (a plain tensor, or a DTensor
+    split over B, T and D as ``cache_sharding`` places it), in place, and
+    return this rank's storage. The row is redistributed to the cache's
+    placement of (B, KV, D) first; where T is split only the rank whose T
+    range holds ``pos`` writes, at ``pos`` less its offset. Nothing is
+    written into a gathered temporary: later steps would read stale rows."""
     if not isinstance(cache, DTensor):
+        cache[:, pos] = row[:, 0].to(cache.dtype)
         return cache
-    if any(not isinstance(p, Replicate) for p in cache.placements):
+    mesh, pl = cache.device_mesh, cache.placements
+    if any(p.is_shard(2) or p.is_partial() for p in pl):
         raise NotImplementedError(
-            f"decode_attention writes into a replicated cache only; this one is "
-            f"placed {tuple(cache.placements)}")
-    return cache.to_local()
+            f"decode_attention writes into a cache split over B, T and D only; this one is "
+            f"placed {tuple(pl)}")
+    local = cache.to_local()
+    row = row.redistribute(mesh, [Replicate() if p.is_shard(1) else p for p in pl]).to_local()
+    T_loc = local.shape[1]
+    lo = shard_index(mesh, pl, 1) * T_loc
+    if lo <= pos < lo + T_loc:
+        local[:, pos - lo] = row[:, 0].to(local.dtype)
+    return local
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _placed_attention(q: DTensor, ck: DTensor, cv: DTensor, kv_len: int) -> DTensor:
+    """One query token per row [B, 1, H, D] against the placed cache [B, T,
+    KV, D] over its first ``kv_len`` rows, on each rank's shards: the
+    decode kernel on the local storage where it holds whole D and T;
+    otherwise the work that partitioning the JAX package's ``_sdpa``
+    (``src/repro/models/layers.py:188``) over those splits gives: partial
+    scores over the local D, summed over the mesh dims that split D (an
+    all-reduce); where T is split, the softmax's max and sum reduced over
+    the mesh dims that split T, and P·V on the local D summed over them
+    (all-reduces). Returns [B, H, D] split as the cache's B and D."""
+    mesh, pl = ck.device_mesh, ck.placements
+    # A split over a mesh dim of one rank splits nothing.
+    t_dims = [i for i, p in enumerate(pl) if p.is_shard(1) and mesh.size(i) > 1]
+    d_dims = [i for i, p in enumerate(pl) if p.is_shard(3) and mesh.size(i) > 1]
+    B, _, H, D = q.shape
+    q_pl = [Replicate() if p.is_shard(1) else p for p in pl]  # B and D as the cache's
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl, vl = ck.to_local(), cv.to_local()
+    out_pl = [Shard(2) if p.is_shard(3) else Replicate() if p.is_shard(1) else p for p in pl]
+    if not t_dims and not d_dims:
+        out = ops.decode_attention(ql.reshape(ql.shape[0], H, D), kl.to(ql.dtype),
+                                   vl.to(ql.dtype), kv_len)
+        return DTensor.from_local(out, mesh, out_pl, run_check=False)
+    if _on_card(kl):
+        raise NotImplementedError(
+            "no decode kernel takes a cache split over its head dimension or its rows yet; "
+            "the card runs a cache split over the batch only")
+    Bl, Tl, KV, Dl = kl.shape
+    f32 = torch.float32
+    qg = ql.reshape(Bl, KV, H // KV, Dl).to(f32)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, kl.to(f32)) / math.sqrt(D)
+    s = _all_reduce(s, "sum", mesh, d_dims)
+    lo = shard_index(mesh, pl, 1) * Tl
+    valid = torch.arange(lo, lo + Tl, device=s.device) < kv_len
+    s = torch.where(valid, s, s.new_tensor(-1e30))
+    m = _all_reduce(s.amax(dim=-1), "max", mesh, t_dims)
+    p = torch.exp(s - m[..., None])
+    l = _all_reduce(p.sum(dim=-1), "sum", mesh, t_dims)  # noqa: E741
+    o = _all_reduce(torch.einsum("bkgt,btkd->bkgd", p, vl.to(f32)), "sum", mesh, t_dims)
+    o = (o / l[..., None]).reshape(Bl, H, Dl).to(ql.dtype)
+    return DTensor.from_local(o, mesh, out_pl, run_check=False)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -308,9 +415,9 @@ def attention(
     B, S, _ = x.shape
     src = x if kv_input is None else kv_input
     T = src.shape[1]
-    q = linear(params["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(params["wk"], src).reshape(B, T, n_kv_heads, head_dim)
-    v = linear(params["wv"], src).reshape(B, T, n_kv_heads, head_dim)
+    q = split_heads(linear(params["wq"], x), (B, S, n_heads, head_dim))
+    k = split_heads(linear(params["wk"], src), (B, T, n_kv_heads, head_dim))
+    v = split_heads(linear(params["wv"], src), (B, T, n_kv_heads, head_dim))
     if use_rope and kv_input is None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -318,13 +425,13 @@ def attention(
     if S == 1 and kv_input is not None:
         # Under a mesh the kernel runs on each rank's full copy.
         out = ops.decode_attention(_replicated_local(q).reshape(B, n_heads, head_dim),
-                                   _replicated_local(k), _replicated_local(v), T)
+                                   _replicated_local(k), _replicated_local(v), T)[:, None]
         if isinstance(q, DTensor):
             out = DTensor.from_local(out, q.device_mesh, [Replicate()] * q.device_mesh.ndim,
                                      run_check=False)
     else:
         out = flash_attention(q, k, v, causal and kv_input is None)
-    return linear(params["wo"], out.reshape(B, S, n_heads * head_dim))
+    return linear(params["wo"], merge_heads(out))
 
 
 def decode_attention(
@@ -345,32 +452,34 @@ def decode_attention(
     returned for the same call shape): a functional update would copy the
     whole cache every layer and step.
 
-    Under a mesh (``x`` a DTensor) the cache is replicated, as the JAX
-    package's serving launcher leaves it (it places no cache): the
-    projections run as DTensor operations, then each rank writes the new
-    row into its full copy of the cache and runs the kernel on it, and the
-    kernel's output enters ``wo`` as a replicated DTensor."""
+    Under a mesh (``x`` and the cache DTensors) the projections run as
+    DTensor operations. A replicated cache (the serving launcher's, as the
+    JAX launcher places none) takes the new row in each rank's full copy,
+    and the kernel runs on it. A cache placed by ``cache_sharding`` (the
+    dry run's: batch over the data axes, D over 'model', T over 'data'
+    where the batch is 1) takes the row in each rank's own shard
+    (:func:`_placed_cache_write`), and the attention runs on the local
+    shards (:func:`_placed_attention`); its output enters ``wo`` split
+    over the batch as the cache is."""
     B = x.shape[0]
-    q = linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    q = split_heads(linear(params["wq"], x), (B, 1, n_heads, head_dim))
     positions = torch.arange(pos, pos + 1, device=x.device)
     cos, sin = rope_tables(positions, head_dim, rope_theta)
     q = apply_rope(q, cos[None], sin[None])
-    k_new = linear(params["wk"], x).reshape(B, 1, n_kv_heads, head_dim)
-    v_new = linear(params["wv"], x).reshape(B, 1, n_kv_heads, head_dim)
+    k_new = split_heads(linear(params["wk"], x), (B, 1, n_kv_heads, head_dim))
+    v_new = split_heads(linear(params["wv"], x), (B, 1, n_kv_heads, head_dim))
     k_new = apply_rope(k_new, cos[None], sin[None])
-    mesh = x.device_mesh if isinstance(x, DTensor) else None
-    q, k_new, v_new = (_replicated_local(t) for t in (q, k_new, v_new))
-    ck, cv = _cache_storage(cache_k), _cache_storage(cache_v)
-    ck[:, pos] = k_new[:, 0].to(ck.dtype)
-    cv[:, pos] = v_new[:, 0].to(cv.dtype)
-    out = ops.decode_attention(
-        q.reshape(B, n_heads, head_dim),
-        ck.to(q.dtype),
-        cv.to(q.dtype),
-        pos + 1,
-    )
-    if mesh is not None:
-        out = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if isinstance(cache_k, DTensor):
+        for cache, row in ((cache_k, k_new), (cache_v, v_new)):
+            _placed_cache_write(cache, row, pos)
+        out = _placed_attention(q, cache_k, cache_v, pos + 1)
+        mesh = out.device_mesh
+        out = out.redistribute(mesh, [p if p.is_shard(0) else Replicate() for p in out.placements])
+    else:
+        _placed_cache_write(cache_k, k_new, pos)
+        _placed_cache_write(cache_v, v_new, pos)
+        out = ops.decode_attention(
+            q.reshape(B, n_heads, head_dim), cache_k.to(q.dtype), cache_v.to(q.dtype), pos + 1)
     out = out.reshape(B, 1, n_heads * head_dim)
     return linear(params["wo"], out), cache_k, cache_v
 

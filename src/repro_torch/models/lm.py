@@ -52,7 +52,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig, layer_kinds, layer_period
 from repro_torch.models.layers import (
-    _cache_storage,
     _replicated_local,
     attention,
     decode_attention,
@@ -299,12 +298,21 @@ def _decode_mixer(lp, cfg: ModelConfig, mixer: str, x, pos: int, mc, rep: int, m
         )
     if mixer not in _RECURRENT:
         raise ValueError(mixer)
-    key, _, step = _RECURRENT[mixer]
-    if isinstance(h, DTensor):
-        return x + _replicated_decode(step, lp[key], cfg, h, mc, rep)
-    y, state = step(lp[key], cfg, h, _take(mc, rep))
+    return x + _recurrent_decode(mixer, lp[_RECURRENT[mixer][0]], cfg, h, mc, rep)
+
+
+def _recurrent_decode(mixer: str, p, cfg: ModelConfig, h, mc, rep: int):
+    """One token through the recurrent ``mixer``'s cell ``p`` (the mixer's
+    output before the residual); its state, repeat ``rep`` of the stacked
+    cache ``mc``, is written back in place. Under a mesh the SSD step runs
+    on each rank's rows and heads (``ssm._sharded_ssd_step``), the xLSTM
+    steps on each rank's rows (:func:`_mesh_decode`)."""
+    step = _RECURRENT[mixer][2]
+    if isinstance(h, DTensor) and mixer != "mamba":
+        return _mesh_decode(step, p, cfg, h, mc, rep)
+    y, state = step(p, cfg, h, _take(mc, rep))
     _store(mc, rep, state)
-    return x + y
+    return y
 
 
 def _map(fn: Callable, tree: Any) -> Any:
@@ -315,21 +323,68 @@ def _map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def _replicated_decode(step: Callable, p, cfg: ModelConfig, h: DTensor, mc, rep: int) -> DTensor:
-    """One recurrent decode step under a mesh, on each rank's full copy:
-    the parameters and ``h`` gathered, the state read from and written into
-    the replicated cache's local storage (a cache placed otherwise raises,
-    as ``layers.decode_attention``'s does), the output a replicated DTensor.
+def _leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _store_own(placed: Any, full: Any) -> None:
+    """Write each rank's own shard of ``full`` (leaves holding this rank's
+    rows, whole in their other dims) into the DTensor leaves of ``placed``,
+    leaf by leaf in place, matched by key."""
+    if isinstance(placed, dict):
+        for k in placed:
+            _store_own(placed[k], full[k])
+    elif isinstance(placed, tuple):
+        for a, b in zip(placed, full):
+            _store_own(a, b)
+    else:
+        own = placed.to_local()
+        mesh = placed.device_mesh
+        for d in range(1, placed.ndim):
+            if any(p.is_shard(d) for p in placed.placements):
+                n = own.shape[d]
+                full = full.narrow(d, shard_index(mesh, placed.placements, d) * n, n)
+        own.copy_(full)
+
+
+def _mesh_decode(step: Callable, p, cfg: ModelConfig, h: DTensor, mc, rep: int) -> DTensor:
+    """One xLSTM decode step (mLSTM or sLSTM) under a mesh, on each rank's
+    own rows (the SSD's runs on its rows and heads:
+    ``ssm._sharded_ssd_step``).
+
+    The state's leaves (repeat ``rep`` of the stacked cache ``mc``) are
+    DTensors, replicated (the serving launcher's cache) or placed by
+    ``cache_sharding``, which splits these states over the batch only (its
+    mLSTM rule takes a ``C`` of 4 dims; stacked over the repeats ``C`` has
+    5, in both packages). The sLSTM's recurrent product and the mLSTM's
+    gated norm mix all heads, so the step is not taken head by head: each
+    rank keeps its rows, gathers any other split of a leaf (an all-gather
+    over the mesh dims that split it), steps its rows on plain tensors
+    with the parameters gathered, writes its own shard of every new leaf
+    back into the leaf's storage in place, and returns the output split
+    over the batch as the state is. With a replicated state the rows are
+    the whole batch and nothing is gathered: each rank steps its full
+    copy. The same result either way.
+
     On DTensor ops the step's projections come out as ``Partial`` sums
     over 'model', and DTensor casts a ``Partial`` leaf by leaf (torch 2.13's
-    ``_to_copy`` strategy keeps it ``Partial``), so the bf16 SSD conv
-    buffer took each rank's partial sum rounded to bf16: a bf16 step from
-    the reference's rounding of the whole sum."""
+    ``_to_copy`` strategy keeps it ``Partial``), so a bf16 leaf would take
+    each rank's partial sum rounded to bf16: the step runs on plain
+    tensors for that reason too."""
     mesh = h.device_mesh
-    local = _map(_cache_storage, mc)
-    y, state = step(_map(_replicated_local, p), cfg, _replicated_local(h), _take(local, rep))
-    _store(local, rep, state)
-    return DTensor.from_local(y, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    state = _take(mc, rep)
+    leaves = _leaves(state)
+    rows = [p if p.is_shard(0) else Replicate() for p in leaves[0].placements]
+    if any([p if p.is_shard(0) else Replicate() for p in t.placements] != rows for t in leaves):
+        raise NotImplementedError("the decode state's leaves split the batch differently")
+    local = _map(lambda t: t.redistribute(mesh, rows).to_local(), state)
+    y, new = step(_map(_replicated_local, p), cfg, h.redistribute(mesh, rows).to_local(), local)
+    _store_own(state, new)
+    return DTensor.from_local(y, mesh, rows, run_check=False)
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,8 @@ output projections run as DTensor ops, and the scans on each rank's local
 rows and heads (:func:`_sharded_ssd`, :func:`_sharded_mlstm`, the sLSTM's
 time loop), each local input's gradient declared as
 ``layers.local_placements`` says. A decode step under a mesh runs on each
-rank's full copy (``lm._replicated_decode``).
+rank's own rows (``lm._recurrent_decode``), the SSD's on its rows and heads
+(:func:`_sharded_ssd_step`).
 
 Rounding points kept from the JAX package:
   * SSD's decay matrix and ``C . B`` stay in float32 (``ssm.py:112-114``);
@@ -35,7 +36,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -44,8 +45,10 @@ from repro_torch.models.layers import (
     init_rms_norm,
     linear,
     local_placements,
+    merge_heads,
     rms_norm,
     row_placements,
+    split_heads,
     to_local,
 )
 
@@ -274,30 +277,81 @@ def ssd_decode_step(
     state: dict[str, torch.Tensor],
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     B = u.shape[0]
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
     z, x, Bm, Cm, dt = _split_ssd(cfg, params, u)
-    x = x[:, 0]  # [B, di]
+    if isinstance(u, DTensor):
+        y, new = _sharded_ssd_step(params, cfg, x, Bm, Cm, dt, state)
+    else:
+        y, new = _ssd_step_core(params, cfg, x[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0], state)
+    y = y.reshape(B, 1, cfg.d_inner)
+    y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)
+    return linear(params["out_proj"], y), new
+
+
+def _ssd_step_core(p: Params, cfg: ModelConfig, x, Bm, Cm, dt, state):
+    """The conv and the state update of one SSD decode step on plain
+    tensors of any number of heads (``dt``'s last dim; ``p`` holds their
+    ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log`` and ``D``): x [B, H * P],
+    Bm, Cm [B, N], dt [B, H] -> (y [B, H * P] before the gated norm, the
+    new state)."""
+    B, H, P = x.shape[0], dt.shape[-1], cfg.ssm_head_dim
     # Rolling causal conv buffer, oldest..newest.
     conv_in = torch.cat([state["conv"].to(x.dtype), x[:, None, :]], dim=1)  # [B, K, di]
     # Match _causal_conv's orientation: w[0] multiplies the NEWEST sample.
-    w = params["conv_w"].to(x.dtype).flip(0)
-    xc = torch.einsum("bkd,kd->bd", conv_in, w) + params["conv_b"].to(x.dtype)
+    w = p["conv_w"].to(x.dtype).flip(0)
+    xc = torch.einsum("bkd,kd->bd", conv_in, w) + p["conv_b"].to(x.dtype)
     xc = F.silu(xc)
     new_conv = conv_in[:, 1:, :].to(torch.bfloat16)
 
-    dtp = F.softplus(dt[:, 0].to(F32) + params["dt_bias"])  # [B,H]
-    A = -torch.exp(params["A_log"])
+    dtp = F.softplus(dt.to(F32) + p["dt_bias"])  # [B,H]
+    A = -torch.exp(p["A_log"])
     decay = torch.exp(dtp * A)  # [B,H]
     xh = xc.reshape(B, H, P)
     s = state["ssm"]
     s = s * decay[..., None, None] + torch.einsum(
-        "bhp,bn,bh->bhpn", xh.to(F32), Bm[:, 0].to(F32), dtp
+        "bhp,bn,bh->bhpn", xh.to(F32), Bm.to(F32), dtp
     )
-    y = torch.einsum("bhpn,bn->bhp", s, Cm[:, 0].to(F32)).to(u.dtype)
-    y = y + params["D"].to(u.dtype)[None, :, None] * xh
-    y = y.reshape(B, 1, cfg.d_inner)
-    y = rms_norm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return linear(params["out_proj"], y), {"ssm": s, "conv": new_conv}
+    y = torch.einsum("bhpn,bn->bhp", s, Cm.to(F32)).to(x.dtype)
+    y = y + p["D"].to(x.dtype)[None, :, None] * xh
+    return y.reshape(B, H * P), {"ssm": s, "conv": new_conv}
+
+
+def _sharded_ssd_step(params: Params, cfg: ModelConfig, x, Bm, Cm, dt, state):
+    """:func:`_ssd_step_core` of DTensors on each rank's rows and heads.
+
+    The state is placed by ``cache_sharding`` (``ssm`` [B, H, P, N] over
+    the batch and its heads, ``conv`` [B, K-1, d_inner] over the batch and
+    its channels, both on 'model'; or replicated, as the serving launcher
+    leaves it). Each (row, head) of the conv and the update is
+    independent, so each rank steps its own rows and heads on its local
+    storage: ``x`` and ``dt`` redistributed to the state's split (a
+    reduce-scatter of their partial sums over 'model', or a slice),
+    ``Bm`` / ``Cm`` (shared by the heads) to the rows, and the per-head
+    parameters sliced. The new state is returned as DTensors placed as the
+    state, and ``y`` split over the heads as ``x``, for the gated norm and
+    the output projection (DTensor ops). Where the conv's channels are not
+    split as the state's heads are, the state is gathered to the rows
+    first (an all-gather over the mesh dims that split it), and the new
+    state's own shards are kept."""
+    ssm_st, conv_st = state["ssm"], state["conv"]
+    mesh = ssm_st.device_mesh
+    rows = [p if p.is_shard(0) else Replicate() for p in ssm_st.placements]
+    heads = [i for i, p in enumerate(ssm_st.placements) if p.is_shard(1)]
+    chans = [i for i, p in enumerate(conv_st.placements) if p.is_shard(2)]
+    if heads != chans:
+        heads = []
+    split = _heads_placements(rows, dict.fromkeys(heads, 2), 2)  # [B, 1, H or di]
+    xl, dtl = (t.redistribute(mesh, split).to_local()[:, 0] for t in (x, dt))
+    Bl, Cl = (t.redistribute(mesh, rows).to_local()[:, 0] for t in (Bm, Cm))
+    p = {key: params[key].redistribute(mesh, [Shard(dim) if i in heads else Replicate()
+                                              for i in range(mesh.ndim)]).to_local()
+         for key, dim in (("conv_w", 1), ("conv_b", 0), ("dt_bias", 0), ("A_log", 0), ("D", 0))}
+    st_pl = {"ssm": _heads_placements(rows, dict.fromkeys(heads, 1), 1),
+             "conv": _heads_placements(rows, dict.fromkeys(heads, 2), 2)}
+    local = {k: state[k].redistribute(mesh, st_pl[k]).to_local() for k in state}
+    y, new = _ssd_step_core(p, cfg, xl, Bl, Cl, dtl, local)
+    new = {k: DTensor.from_local(v, mesh, st_pl[k], run_check=False).redistribute(
+        mesh, state[k].placements) for k, v in new.items()}
+    return DTensor.from_local(y[:, None], mesh, split, run_check=False), new
 
 
 # ==========================================================================
@@ -332,16 +386,16 @@ def mlstm_forward(
         # columns before the slice.
         xz = xz.redistribute(xz.device_mesh, row_placements(xz))
     x, z = xz[..., :di], xz[..., di:]
-    q = linear(params["wq"], x).reshape(B, S, H, P)
-    k = linear(params["wk"], x).reshape(B, S, H, P)
-    v = linear(params["wv"], x).reshape(B, S, H, P)
+    q = split_heads(linear(params["wq"], x), (B, S, H, P))
+    k = split_heads(linear(params["wk"], x), (B, S, H, P))
+    v = split_heads(linear(params["wv"], x), (B, S, H, P))
     gif = linear(params["wif"], x).to(F32)
     gi, gf = gif[..., :H], gif[..., H:]
     if isinstance(u, DTensor):
         h, state = _sharded_mlstm(u, q, k, v, gi, gf)
     else:
         h, state = _mlstm_core(q, k, v, gi, gf)
-    h = h.reshape(B, S, di)
+    h = merge_heads(h)
     h = rms_norm(params["norm"], h, cfg.norm_eps) * F.silu(z)
     return linear(params["down"], h), state
 
@@ -504,17 +558,22 @@ def slstm_forward(
     return _slstm_out(params, cfg, hs), carry
 
 
-def _slstm_scan(wh: Params, gx: torch.Tensor) -> tuple[torch.Tensor, tuple]:
-    """The sLSTM time loop over plain gate inputs gx [B, S, 4d] from a zero
-    state: (h [B, S, d], final carry)."""
-    B, S, d4 = gx.shape
-    d = d4 // 4
-    carry = (
+def _zero_carry(gx: torch.Tensor) -> tuple:
+    B, d = gx.shape[0], gx.shape[-1] // 4
+    return (
         torch.zeros((B, d), dtype=F32, device=gx.device),
         torch.zeros((B, d), dtype=F32, device=gx.device),
         torch.full((B, d), -1e30, dtype=F32, device=gx.device),
         torch.zeros((B, d), dtype=gx.dtype, device=gx.device),
     )
+
+
+def _slstm_scan(wh: Params, gx: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+    """The sLSTM time loop over plain gate inputs gx [B, S, 4d] from a zero
+    state: (h [B, S, d], final carry)."""
+    B, S, d4 = gx.shape
+    d = d4 // 4
+    carry = _zero_carry(gx)
     hs = []
     for t in range(S):
         carry, h_t = _slstm_cell(wh, d, gx[:, t], carry)

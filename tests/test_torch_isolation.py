@@ -141,3 +141,55 @@ def test_model_stack_has_no_quiet_cpu_fallback():
     # Asked for by name, the CPU runs.
     params = model.init(0, device="cpu")
     assert params["embed"]["table"].device.type == "cpu"
+
+
+def test_dry_run_modules_load_neither_jax_nor_reference_package():
+    """The dry run and its op analyzer stand alone too: no module of JAX or
+    of the JAX package is loaded by importing them (the reference's
+    ``hlo_analysis.py`` imports no JAX, and the port takes nothing from it
+    either)."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import repro_torch.launch.op_analysis, repro_torch.launch.dryrun
+        bad = sorted(
+            m for m in sys.modules
+            if m == "jax" or m.startswith("jax.")
+            or m == "repro" or m.startswith("repro.")
+        )
+        print(bad)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": SRC}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("op", ["flash_fwd", "flash_fwd_lse", "flash_bwd_delta",
+                                "flash_bwd_dkdv", "flash_bwd_dq", "decode_attention"])
+def test_kernel_operators_refuse_other_devices(op):
+    """Each kernel operator has a CPU, a CUDA and a fake implementation and
+    nothing else: a tensor on another device (``meta``) that reaches the
+    operator raises, as it does at the wrapper's check."""
+    from repro_torch.kernels import attention
+
+    q = torch.zeros((1, 3, 4, 16), device="meta")
+    k = torch.zeros((1, 3, 2, 16), device="meta")
+    lse = torch.zeros((1, 3, 4), device="meta")
+    args = {
+        "flash_fwd": (q, k, k, True),
+        "flash_fwd_lse": (q, k, k, True),
+        "flash_bwd_delta": (q, q),
+        "flash_bwd_dkdv": (q, k, k, q, lse, lse, True),
+        "flash_bwd_dq": (q, k, k, q, lse, lse, True),
+        "decode_attention": (q[:, 0], k, k, None, 2),
+    }[op]
+    with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
+        getattr(torch.ops.repro_torch, op)(*args)
+    with pytest.raises(ValueError, match="device"):
+        attention.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="device"):
+        attention.decode_attention(q[:, 0], k, k, 2)

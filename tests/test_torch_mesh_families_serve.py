@@ -15,16 +15,22 @@ The ranks are ``tests/test_torch_mesh.py``'s (``_spawn``: ``gloo`` over a
   MoE configs (dbrx, phi3.5-moe, jamba) per-position KL within
   ``tests/test_models.py:103-111``'s bars (max < 0.1, mean < 0.02), since
   a near tie in the router may flip a choice;
-* one SSD and one sLSTM decode step through the mesh route
-  (``lm._replicated_decode``: the parameters, the input placed by
-  ``act_mid`` and the state in a replicated cache on the (1, 2) mesh)
-  against the JAX package's decode step from the same state, drawn from a
-  seed: the output and every float32 state leaf within 1e-4
+* one SSD and one sLSTM decode step through the route that serving takes
+  under a mesh (``lm._recurrent_decode``: the SSD's on each rank's rows
+  and heads, the sLSTM's on its rows; the input placed by ``act_mid``),
+  with the state in a replicated cache (the serving launcher's, the
+  parameters replicated) and with it placed by ``cache_sharding`` (the
+  SSD state split over its heads and the conv buffer over its channels on
+  'model', the parameters placed by ``param_sharding``: the dry run's
+  decode), on the (1, 2) mesh, each against the JAX package's decode step
+  from the same state, drawn from a seed: the output and every float32
+  state leaf within 1e-4
   (``tests/test_torch_ssm.py``'s mixer bar), the bf16 leaves (the SSD conv
   buffer, the sLSTM h) within one bf16 step of the reference's (the f32
   values before the rounding differ in the frameworks' sum orders).
 """
 
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +46,7 @@ DECODE = {  # mixer: (arch, lm mixer kind)
     "ssd": ("jamba_v0_1_52b", "mamba"),
     "slstm": ("xlstm_350m", "slstm"),
 }
+ROUTES = ("replicated", "placed")  # the decode state's placement
 
 
 def _served(arch: str):
@@ -77,18 +84,23 @@ def _job_serve(rank: int, world: int, d: Path) -> None:
                      prompt_logits=res.prompt_logits.numpy(),
                      prefill_logits=res.prefill_logits.numpy())
     rules = S.activation_rules(mesh)
-    for mixer, (arch, kind) in DECODE.items():
+    for (mixer, (arch, kind)), route in itertools.product(DECODE.items(), ROUTES):
         inp = torch.load(d / f"{mixer}_in.pt")
-        key, _, step = lm._RECURRENT[kind]
         stacked = lm._stack([inp["state"]])  # one repeat
         with activation_sharding(rules), torch.no_grad():
-            p, cache = _replicated((inp["params"], stacked), mesh)
+            if route == "replicated":
+                p, cache = _replicated((inp["params"], stacked), mesh)
+            else:
+                p = S.distribute(inp["params"], S.param_sharding(inp["params"], mesh))
+                cache = S.distribute(stacked, S.cache_sharding(stacked, mesh))
             u = DTensor.from_local(inp["u"], mesh, [Replicate()] * 2).redistribute(
                 mesh, rules["act_mid"].placements)
-            y = lm._replicated_decode(step, p, smoke_config(arch), u, cache, 0)
-        state = lm._take(S.gather(cache), 0)
+            y = lm._recurrent_decode(kind, p, smoke_config(arch), u, cache, 0)
+        placements = [repr(t.placements) for t in lm._leaves(cache)]
+        y, state = y.full_tensor(), lm._take(S.gather(cache), 0)  # collectives: every rank
         if rank == 0:
-            torch.save({"y": y.full_tensor(), "state": state}, d / f"{mixer}_out.pt")
+            torch.save({"y": y, "state": state, "placements": placements},
+                       d / f"{mixer}_{route}_out.pt")
 
 
 def _decode_inputs(mixer: str):
@@ -160,8 +172,7 @@ def test_family_serves_the_same_tokens_under_a_mesh(served, arch):
             np.testing.assert_allclose(got[k], w, atol=2e-5, rtol=0, err_msg=k)
 
 
-@pytest.mark.parametrize("mixer", list(DECODE))
-def test_recurrent_decode_step_under_a_mesh_matches_reference(served, mixer):
+def _check_decode(served: Path, mixer: str, route: str) -> None:
     import jax
 
     from repro.configs import smoke_config as j_smoke_config
@@ -171,7 +182,7 @@ def test_recurrent_decode_step_under_a_mesh_matches_reference(served, mixer):
     jcfg = j_smoke_config(DECODE[mixer][0])
     step = jssm.ssd_decode_step if mixer == "ssd" else jssm.slstm_decode_step
     yj, sj = step(pj, jcfg, uj, sj)
-    out = torch.load(served / f"{mixer}_out.pt")
+    out = torch.load(served / f"{mixer}_{route}_out.pt")
     np.testing.assert_allclose(out["y"].numpy(), np.asarray(yj), atol=1e-4, rtol=1e-4)
     got = jax.tree_util.tree_leaves(out["state"])
     want = jax.tree_util.tree_leaves(sj)
@@ -184,3 +195,19 @@ def test_recurrent_decode_step_under_a_mesh_matches_reference(served, mixer):
             assert np.all(np.abs(gf - wf) <= step_of), float(np.abs(gf - wf).max())
         else:
             np.testing.assert_allclose(gf, wf, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mixer", list(DECODE))
+def test_recurrent_decode_step_under_a_mesh_matches_reference(served, mixer):
+    _check_decode(served, mixer, "replicated")
+
+
+@pytest.mark.parametrize("mixer", list(DECODE))
+def test_recurrent_decode_step_with_a_placed_state_matches_reference(served, mixer):
+    out = torch.load(served / f"{mixer}_placed_out.pt")
+    if mixer == "ssd":
+        # cache_sharding splits the SSD state over its heads and the conv
+        # buffer over its channels on 'model' (mesh dim 1): the per-head route.
+        assert sorted(out["placements"]) == ["(Shard(dim=1), Shard(dim=2))",
+                                             "(Shard(dim=1), Shard(dim=3))"], out["placements"]
+    _check_decode(served, mixer, "placed")
