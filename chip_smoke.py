@@ -56,11 +56,13 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
   5d. holds the port on the card (kernels) against the port on the CPU
      (plain versions) on the smoke configs of every family: prefill and 8
      decode steps (KL per row for the MoE configs, allclose for the rest);
-  6. runs the paper's production scenario (examples/schedule_cluster.py)
-     with the exact optimum as the oracle: 8 periodic jobs on 8 racks and
-     2 wireless subchannels through ``schedule_fleet`` on the card, each
-     job's wired-only and wireless-augmented optimum by ``solve_bnb``
-     (time limit 10 s a solve, as in the example); a job that does not
+  6. runs the paper's production scenario through its twin
+     (``examples/torch_schedule_cluster.py``'s ``main``, whose per-job
+     numbers the phase gates) with the exact optimum as the oracle: 8
+     periodic jobs on 8 racks and 2 wireless subchannels through
+     ``schedule_fleet`` on the card, each job's wired-only and
+     wireless-augmented optimum by ``solve_bnb`` (time limit 10 s a
+     solve, as in the example); a job that does not
      prove optimal in that time is reported as such and its checks are
      skipped. Where proved: the fleet's makespan >= optimum - 0.15, and
      augmented <= wired-only + 0.15. On tests/test_vectorized.py's
@@ -150,6 +152,13 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      each kernel operator's calls equal; 10c serves 9c's shape with the cache placed by
      ``cache_sharding`` and with a replicated cache: tokens equal, decode
      launches equal;
+  11. runs the twins of the JAX package's example scripts as a user runs them, each
+     in a process of its own at its defaults: ``examples/torch_quickstart.py``,
+     ``torch_serve_jobs.py`` (``cpm_fleet_lb`` must launch),
+     ``torch_serve_batched.py`` (flash and decode) and ``torch_train_e2e.py``
+     (200 steps, the forward with lse and the three backward kernels), then
+     the last again over its checkpoint, which must resume at step 101;
+     each exits 0 and returns finite numbers;
 
 and prints the kernel table and, as its last line,
 ``{"ok": true, "device": {...}}``. Every check raises on failure. It
@@ -157,9 +166,10 @@ exits non-zero, printing no result, when no card is available or when
 ``src/repro_torch`` is missing. Each main path reads its own launch
 counts: the scheduler's (phases 2 and 3), the serving path's (phase 5b),
 each family's serve (phase 7), the training path's (phase 8b), each
-family's training step (phase 8e) and the mesh path's training and
-serving (phases 9b and 9c), every count set to 0 just before and read
-just after.
+family's training step (phase 8e), the mesh path's training and
+serving (phases 9b and 9c) and each twin of the JAX package's example scripts
+(phase 11, each in a process of its own), every count set to 0 just
+before and read just after.
 """
 
 from __future__ import annotations
@@ -344,6 +354,18 @@ def emit(tag: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def load_script(rel: str):
+    """One of the repository's scripts (``examples/``, ``tools/``:
+    no packages) as a module."""
+    import importlib.util
+
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(f"script_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def row_rel_err(got, want) -> float:
@@ -2574,8 +2596,8 @@ def production_scenario(np, torch, stream) -> None:
     from 0."""
     from repro_torch.configs import get_config
     from repro_torch.core import (
-        ProblemInstance, check_feasible, random_job, schedule_fleet,
-        solve_bisection, solve_bnb, solve_optimal, wired_only,
+        ProblemInstance, check_feasible, random_job, solve_bisection, solve_bnb,
+        solve_optimal, wired_only,
     )
     from repro_torch.core.vectorized import (
         batched_lower_bound, enumerate_assignments, make_batched_evaluator,
@@ -2595,49 +2617,42 @@ def production_scenario(np, torch, stream) -> None:
         cpm.launches[k] = 0
     t_phase = time.perf_counter()
 
-    # -- the fleet on the card, each job's optima by B&B ---------------------
-    insts = [
-        ProblemInstance(job=random_job(np.random.default_rng(100 + j), None, rho=0.5),
-                        n_racks=8, n_wireless=2)
-        for j in range(SCENARIO_JOBS)
-    ]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fleet = schedule_fleet(insts, max_enumerate=20_000, n_samples=2048,
-                           strategies="portfolio")
-    torch.cuda.synchronize()
-    fleet_wall = time.perf_counter() - t
+    # -- the fleet on the card, each job's optima by B&B: the example itself ----
+    scenario = load_script("examples/torch_schedule_cluster.py").main(
+        ["--jobs", str(SCENARIO_JOBS), "--time-limit", str(SCENARIO_BNB_S)])
+    fleet = scenario["fleet_result"]
     fleet_launches = dict(cpm.launches)
     check(fleet_launches["fleet_lb"] > 0, "scenario fleet launched no fleet_lb")
-    n_proved, wired_sum, aug_sum = 0, 0.0, 0.0
-    for j, (inst, rv) in enumerate(zip(insts, fleet.results)):
+    n_proved = 0
+    for j, (inst, rv, job) in enumerate(zip(scenario["instances"], fleet.results,
+                                            scenario["jobs"])):
         check_feasible(inst, rv.schedule)
-        wired = wired_only(inst)
-        r0 = solve_bnb(wired, time_limit=SCENARIO_BNB_S)
-        r2 = solve_bnb(inst, time_limit=SCENARIO_BNB_S)
-        check_feasible(wired, r0.schedule)
-        check_feasible(inst, r2.schedule)
-        if r2.proved_optimal:
+        check_feasible(wired_only(inst), job["wired_schedule"])
+        check_feasible(inst, job["augmented_schedule"])
+        if job["augmented_proved"]:
             n_proved += 1
-            check(rv.makespan >= r2.makespan - EPS_SLACK,
-                  f"scenario job {j}: fleet {rv.makespan} < optimum {r2.makespan} - {EPS_SLACK}")
-            check(r2.makespan <= r0.makespan + EPS_SLACK,
-                  f"scenario job {j}: augmented {r2.makespan} > wired-only {r0.makespan} + {EPS_SLACK}")
-        wired_sum += r0.makespan
-        aug_sum += r2.makespan
-        emit("scenario_job", job=j, n_tasks=inst.job.n_tasks, wired_opt=r0.makespan,
-             augmented_opt=r2.makespan, gain=1 - r2.makespan / r0.makespan,
-             fleet_makespan=float(rv.makespan), wired_proved=r0.proved_optimal,
-             augmented_proved=r2.proved_optimal, wired_wall_s=r0.wall_s,
-             augmented_wall_s=r2.wall_s, fleet_pruned=rv.n_pruned,
-             fleet_candidates=rv.n_candidates)
+            check(rv.makespan >= job["augmented"] - EPS_SLACK,
+                  f"scenario job {j}: fleet {rv.makespan} < optimum {job['augmented']} "
+                  f"- {EPS_SLACK}")
+            check(job["augmented"] <= job["wired"] + EPS_SLACK,
+                  f"scenario job {j}: augmented {job['augmented']} > wired-only "
+                  f"{job['wired']} + {EPS_SLACK}")
+        emit("scenario_job", job=j, n_tasks=job["n_tasks"], wired_opt=job["wired"],
+             augmented_opt=job["augmented"], gain=1 - job["augmented"] / job["wired"],
+             fleet_makespan=job["fleet"], wired_proved=job["wired_proved"],
+             augmented_proved=job["augmented_proved"], wired_wall_s=job["wired_wall_s"],
+             augmented_wall_s=job["augmented_wall_s"], fleet_pruned=job["pruned"],
+             fleet_candidates=job["candidates"])
+    check(n_proved == scenario["proved"], "scenario: the example's proved count differs")
     emit("scenario", jobs=SCENARIO_JOBS, bnb_time_limit_s=SCENARIO_BNB_S,
-         augmented_proved=n_proved, mean_wired_opt=wired_sum / SCENARIO_JOBS,
-         mean_augmented_opt=aug_sum / SCENARIO_JOBS, gain=1 - aug_sum / wired_sum,
-         fleet_mean_makespan=float(fleet.makespans.mean()), fleet_wall_s=fleet_wall,
+         augmented_proved=n_proved, mean_wired_opt=scenario["mean_wired"],
+         mean_augmented_opt=scenario["mean_augmented"],
+         gain=1 - scenario["mean_augmented"] / scenario["mean_wired"],
+         fleet_mean_makespan=scenario["fleet_mean"], fleet_wall_s=scenario["fleet_wall_s"],
          stage1_launches=fleet.n_stage1_launches, stage2_launches=fleet.n_stage2_launches,
          n_pruned=fleet.n_pruned, n_candidates=fleet.n_candidates,
-         kernel_launches=fleet_launches)
+         kernel_launches=fleet_launches, healthy_step_s=scenario["healthy_step_s"],
+         degraded_step_s=scenario["degraded_step_s"])
 
     # -- the stage-1 bound on the card against the optimum ---------------------
     for seed in range(4):  # tests/test_vectorized.py:18's instances
@@ -2708,6 +2723,126 @@ def production_scenario(np, torch, stream) -> None:
     launches = dict(cpm.launches)
     check(launches["fleet_lb"] > 0, "phase 6 never launched fleet_lb")
     emit("scenario_phase", seconds=time.perf_counter() - t_phase, launches=launches)
+
+
+# Phase 11: each twin of the JAX package's example scripts, as a user runs
+# it, in a process of its own: its ``main`` at its defaults, then the launch
+# counts of that process (0 at its start) and the numbers it returned, as the
+# last line of its output.
+_EXAMPLE_CHILD = """
+import json, math, sys
+sys.path.insert(0, "src")
+import numpy as np
+import chip_smoke
+from repro_torch.kernels import attention, cpm
+
+def numbers(x):
+    if isinstance(x, dict):
+        return {k: numbers(v) for k, v in x.items() if numbers(v) is not None}
+    if isinstance(x, (list, tuple)):
+        out = [numbers(v) for v in x]
+        return [v for v in out if v is not None] or None
+    if isinstance(x, np.ndarray) and x.dtype.kind in "fiub":
+        return x.astype(float).ravel().tolist()
+    if isinstance(x, (bool, int, float, np.integer, np.floating)):
+        return float(x)
+    return None
+
+out = chip_smoke.load_script(sys.argv[1]).main(json.loads(sys.argv[2]))
+print(json.dumps({"launches": {**cpm.launches, **attention.launches},
+                  "numbers": numbers(out)}))
+"""
+EXAMPLE_TIMEOUT_S = 600
+
+
+def example_phases(np, torch) -> None:
+    """11. The twins of the JAX package's example scripts on the card, each
+    in a process of its own at its defaults (the first three beside the
+    first training run): ``examples/torch_quickstart.py``
+    (host only), ``torch_serve_jobs.py`` (the online scheduler: the
+    ``cpm_fleet_lb`` kernel), ``torch_serve_batched.py`` (prefill: flash;
+    serve steps: decode) and ``torch_train_e2e.py`` (its 200 steps into a
+    temporary checkpoint directory: flash with lse and the three backward
+    kernels; then the same command again, which resumes from the
+    checkpoint of label 101 and runs the 99 steps left). Each must exit 0,
+    launch the kernels it reaches, and return finite numbers; the resumed
+    run starts at step 101 and its first loss is within 1e-3 relative of
+    the uninterrupted run's (phase 8d's bar: the embedding gradient's
+    ``index_put_`` uses atomics)."""
+    import math
+    import os
+    import tempfile
+
+    def finite(x) -> bool:
+        if isinstance(x, dict):
+            return all(finite(v) for v in x.values())
+        if isinstance(x, list):
+            return all(finite(v) for v in x)
+        return math.isfinite(x)
+
+    def run(group, tmp):
+        """Each (label, script, argv, kernels it reaches) of ``group`` in a
+        process of its own, all at once; each wall ends when its process
+        does."""
+        jobs = []
+        try:
+            for i, (label, script, argv, reaches) in enumerate(group):
+                out, err = (open(Path(tmp) / f"{i}.{x}", "w+") for x in ("out", "err"))
+                p = subprocess.Popen([sys.executable, "-c", _EXAMPLE_CHILD, script,
+                                      json.dumps(argv)], cwd=ROOT, stdout=out, stderr=err,
+                                     env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+                jobs.append(dict(label=label, script=script, argv=argv, reaches=reaches,
+                                 out=out, err=err, p=p, t0=time.perf_counter()))
+            deadline = time.perf_counter() + EXAMPLE_TIMEOUT_S
+            while any("wall" not in j for j in jobs) and time.perf_counter() < deadline:
+                for j in jobs:
+                    if "wall" not in j and j["p"].poll() is not None:
+                        j["wall"] = time.perf_counter() - j["t0"]
+                time.sleep(0.05)
+        finally:
+            for j in jobs:
+                if j["p"].poll() is None:
+                    j["p"].kill()
+                    j["p"].wait()
+        numbers = []
+        for j in jobs:
+            j["out"].seek(0), j["err"].seek(0)
+            stdout, stderr = j["out"].read(), j["err"].read()
+            j["out"].close(), j["err"].close()
+            check(j["p"].returncode == 0,
+                  f"{j['label']}: exit {j['p'].returncode}: {stderr[-3000:]}")
+            out = json.loads(stdout.strip().splitlines()[-1])
+            launched = {k: v for k, v in out["launches"].items() if v}
+            emit("example", run=j["label"], script=j["script"], argv=j["argv"],
+                 wall_s=j["wall"], launches=launched,
+                 printed_lines=len(stdout.splitlines()) - 1)
+            for name in j["reaches"]:
+                check(launched.get(name, 0) > 0, f"{j['label']}: never launched {name}")
+            check(finite(out["numbers"]), f"{j['label']}: a number it returned is not finite")
+            numbers.append(out["numbers"])
+        return numbers
+
+    # The three short twins run beside the first training run, each in its
+    # own process on the one card.
+    t_phase = time.perf_counter()
+    train = ("flash_attention_lse",) + BWD_KERNELS
+    script = "examples/torch_train_e2e.py"
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        argv = ["--ckpt-dir", str(Path(tmp) / "ckpt")]
+        whole = run([("train_e2e", script, argv, train),
+                     ("quickstart", "examples/torch_quickstart.py", [], ()),
+                     ("serve_jobs", "examples/torch_serve_jobs.py", [], ("fleet_lb",)),
+                     ("serve_batched", "examples/torch_serve_batched.py", [],
+                      ("flash_attention", "decode_attention"))], tmp)[0]
+        resumed, = run([("train_e2e_resumed", script, argv, train)], tmp)
+    check(whole["start"] == 0 and len(whole["metrics"]) == 200, "train_e2e: not 200 steps")
+    check(resumed["start"] == 101 and len(resumed["metrics"]) == 99,
+          f"train_e2e resumed at {resumed['start']} for {len(resumed['metrics'])} steps")
+    a, b = whole["metrics"][101]["loss"], resumed["metrics"][0]["loss"]
+    check(abs(a - b) <= 1e-3 * abs(a), f"train_e2e: resumed loss {b} against {a}")
+    emit("examples", seconds=time.perf_counter() - t_phase,
+         train_final_loss=whole["metrics"][-1]["loss"], resumed_first_loss=b,
+         uninterrupted_loss_at_101=a)
 
 
 def main() -> int:
@@ -3077,6 +3212,9 @@ def main() -> int:
 
     # -- 10. the dry run: fake tensors over a fake world ------------------------
     dry_run_phases(np, torch)
+
+    # -- 11. the twins of the JAX package's example scripts, as a user runs them -------
+    example_phases(np, torch)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],

@@ -217,13 +217,13 @@ class _TracedScan(torch.autograd.Function):
     (``op_analysis.repeated``), forward and backward: the counts of running
     all S steps, without ~10 ms of host time a step (70 minutes for one
     xlstm-350m prefill cell). The backward counts one step's gradient with
-    respect to the weights and the gate inputs S times, and with respect
-    to its incoming carry S - 1 times (the first step's carry is a
+    respect to the weights and its [B, 4d] gate input S times, and with
+    respect to its incoming carry S - 1 times (the first step's carry is a
     constant), as the loop's backward does: the same FLOPs; the HBM bytes
     of the gradient's shared elementwise ops are counted for both parts.
-    A step's gradient of its slice of the gate inputs is a full [B, S, 4d]
-    tensor (a slice's backward), and autograd sums the S of them: S - 1
-    adds of that size, counted so.
+    The loop takes its steps' gate inputs from one ``unbind``, whose
+    backward stacks the S step gradients into the [B, S, 4d] gradient
+    once: one stack, counted so.
 
     Where autograd records the loop (``record``: a training step), what
     its S steps save for the backward is one saved tensor of S times the
@@ -250,21 +250,19 @@ class _TracedScan(torch.autograd.Function):
         gx, *ws, _ = ctx.saved_tensors
         S, d = gx.shape[1], gx.shape[-1] // 4
         with torch.enable_grad():
-            gx = gx.detach().requires_grad_()
+            gx_t = gx[:, 0].detach().requires_grad_()
             ws = [w.detach().requires_grad_() for w in ws]
             carry = [t.requires_grad_() for t in ssm._zero_carry(gx)]
             with repeated(0):  # the loop's backward reads saved values, recomputes nothing
-                new, h = ssm._slstm_cell(dict(zip(ctx.keys, ws)), d, gx[:, 0], tuple(carry))
+                new, h = ssm._slstm_cell(dict(zip(ctx.keys, ws)), d, gx_t, tuple(carry))
             outs, douts = (h, *new[:3]), (dhs[:, 0], *(torch.zeros_like(t) for t in new[:3]))
             with repeated(S):
-                grads = torch.autograd.grad(outs, (gx, *ws), douts, retain_graph=True)
-            # Every step but the first passes a gradient to its incoming carry,
-            # and autograd sums the steps' gradients of the gate inputs, each
-            # of their full size (a slice's backward), into one.
+                grads = torch.autograd.grad(outs, (gx_t, *ws), douts, retain_graph=True)
+            # Every step but the first passes a gradient to its incoming carry.
             with repeated(S - 1):
                 torch.autograd.grad(outs, carry, douts, allow_unused=True)
-                torch.add(grads[0], grads[0])
-        return (None, None, *grads)
+        # unbind's backward: the S steps' gate-input gradients stacked once.
+        return (None, None, torch.stack([grads[0]] * S, dim=1), *grads[1:])
 
 
 def _step_saved_bytes(keys, gx, ws) -> int:
@@ -287,8 +285,8 @@ def _step_saved_bytes(keys, gx, ws) -> int:
             x = gx.detach().requires_grad_()
             w = [t.detach().requires_grad_() for t in ws]
             carry = tuple(t.requires_grad_() for t in ssm._zero_carry(x))
-            for t in range(n):
-                carry, _ = ssm._slstm_cell(dict(zip(keys, w)), x.shape[-1] // 4, x[:, t], carry)
+            for x_t in x.unbind(1)[:n]:
+                carry, _ = ssm._slstm_cell(dict(zip(keys, w)), x.shape[-1] // 4, x_t, carry)
         inputs = {StorageWeakRef(t.untyped_storage()) for t in (x, *w)}
         return sum(b for ref, b in saved.items() if ref not in inputs)
 

@@ -31,6 +31,7 @@ flash route, :func:`decode_attention` for the decode route).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Any
@@ -46,11 +47,13 @@ from repro_torch.models.flash import flash_attention
 
 __all__ = [
     "shard",
+    "rule_placements",
     "split_heads",
     "merge_heads",
     "row_placements",
     "local_placements",
     "to_local",
+    "placed_grad",
     "activation_sharding",
     "under_current_rules",
     "rms_norm",
@@ -130,15 +133,23 @@ def shard(x: torch.Tensor, name: str) -> torch.Tensor:
     package). A rank mismatch, a missing rule or a plain tensor leaves
     ``x`` as it is.
     """
+    pl = rule_placements(name, tuple(x.shape)) if isinstance(x, DTensor) else None
+    if pl is None:
+        return x
+    return x.redistribute(_rules()[name].mesh, pl)
+
+
+def rule_placements(name: str, shape: tuple) -> tuple | None:
+    """The placements that the ambient rule for ``name`` gives a tensor of
+    ``shape`` (as :func:`shard` places it), or None where ``shard`` leaves
+    the tensor as it is (no rule, or a rank mismatch)."""
     sh = _rules().get(name)
-    if sh is None or not isinstance(x, DTensor):
-        return x
-    parts = list(sh.spec) + [None] * (x.ndim - len(sh.spec))
-    if len(parts) != x.ndim:
-        return x
-    mesh = sh.mesh
-    return x.redistribute(mesh, placements(mesh, fit_spec(mesh, tuple(x.shape),
-                                                          PartitionSpec(*parts))))
+    if sh is None:
+        return None
+    parts = list(sh.spec) + [None] * (len(shape) - len(sh.spec))
+    if len(parts) != len(shape):
+        return None
+    return placements(sh.mesh, fit_spec(sh.mesh, shape, PartitionSpec(*parts)))
 
 
 def _replicated_local(x: torch.Tensor) -> torch.Tensor:
@@ -181,6 +192,56 @@ def to_local(t: torch.Tensor, fwd: list, grad: list | None = None) -> torch.Tens
     if not isinstance(t, DTensor):
         return t
     return t.redistribute(t.device_mesh, fwd).to_local(grad_placements=grad)
+
+
+def _merged(a, b):
+    """The placement that DTensor's ``stack`` gives two of its inputs on
+    one mesh dim: a ``Partial`` follows a ``Shard``, a ``Replicate``
+    follows either, two different ``Shard``s meet in ``Replicate``."""
+    if a == b:
+        return a
+    if a.is_partial():
+        return b if b.is_shard() else Replicate() if b.is_partial() else a
+    if a.is_shard():
+        return Replicate() if b.is_shard() else a
+    return b
+
+
+class _PlacedGrad(torch.autograd.Function):
+    """The identity on a repeat's slice of a stacked leaf, whose backward
+    redistributes the slice's gradient to the slice's placements. A
+    gradient that is ``Partial`` over several mesh dims is reduced in the
+    order ``unbind``'s backward would have taken: first to the placements
+    that ``stack`` merges from the repeats' gradients seen so far
+    (``seen``, shared by the repeats of one leaf), then to the slice's."""
+
+    @staticmethod
+    def forward(ctx, t, seen):
+        ctx.mesh, ctx.placements, ctx.seen = t.device_mesh, tuple(t.placements), seen
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            ctx.seen.append(tuple(g.placements))
+            follow = tuple(functools.reduce(lambda f, p: [_merged(a, b) for a, b in zip(f, p)],
+                                            ctx.seen))
+            for pl in (follow, ctx.placements):
+                if tuple(g.placements) != pl:
+                    g = g.redistribute(ctx.mesh, pl)
+        return g, None
+
+
+def placed_grad(t: torch.Tensor, seen: list) -> torch.Tensor:
+    """``t``, a repeat's slice of a stacked leaf, its gradient redistributed
+    to ``t``'s own placements as it arrives (a reduce-scatter of DTensor's
+    ``Partial`` sums), as the reference's SPMD program reduces a gradient
+    into its operand's sharding; ``seen`` is shared by the repeats of the
+    leaf (:class:`_PlacedGrad`). A plain tensor, or one without a
+    gradient, as it is."""
+    if not (isinstance(t, DTensor) and t.requires_grad and torch.is_grad_enabled()):
+        return t
+    return _PlacedGrad.apply(t, seen)
 
 
 def split_heads(t: torch.Tensor, shape: tuple) -> torch.Tensor:

@@ -61,6 +61,7 @@ from repro_torch.models.layers import (
     init_mlp,
     init_rms_norm,
     mlp_swiglu,
+    placed_grad,
     rms_norm,
     rope_tables,
     shard,
@@ -107,6 +108,34 @@ def _unstack(tree: Any, n: int) -> list:
         parts = [_unstack(v, n) for v in tree]
         return [tuple(p[i] for p in parts) for i in range(n)]
     return list(torch.unbind(tree, dim=0))
+
+
+def _placed_grads(tree: Any, seen: Any) -> Any:
+    """A repeat of a stacked parameter tree from :func:`_unstack`, each
+    slice's gradient redistributed to the slice's own placements (the
+    parameter's, dim 0 removed) as it arrives, before ``unbind``'s backward
+    stacks the repeats (``layers.placed_grad``; ``seen`` from
+    :func:`_grad_records`): under a mesh each slice's gradient comes as a
+    full-size ``Partial`` sum, and stacking those held a full-size float32
+    gradient of every stacked leaf on every rank. Called where a repeat is
+    used, not in :func:`_unstack`: autograd runs the ready nodes latest
+    made first, so a node made before the layer loop would wait for the
+    whole backward pass. Plain tensors pass as they are."""
+    if isinstance(tree, dict):
+        return {k: _placed_grads(v, seen[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_placed_grads(v, s) for v, s in zip(tree, seen))
+    return placed_grad(tree, seen)
+
+
+def _grad_records(tree: Any) -> Any:
+    """An empty record for each stacked leaf of ``tree`` of the placements
+    its repeats' gradients arrive in (shared by its repeats)."""
+    if isinstance(tree, dict):
+        return {k: _grad_records(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_grad_records(v) for v in tree)
+    return []
 
 
 def _remat(fn: Callable, *args):
@@ -455,8 +484,9 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
             h2 = rms_norm(lp["ffn"]["norm"], x, eps)
             return shard(x + mlp_swiglu(lp["ffn"]["mlp"], h2), "act_hidden")
 
+        seen = _grad_records(enc["layers"])
         for lp in _unstack(enc["layers"], cfg.n_enc_layers):
-            x = _remat(layer, x, lp)
+            x = _remat(layer, x, _placed_grads(lp, seen))
         return rms_norm(enc["norm"], x, eps)
 
     # ---------------- hidden trunk ----------------
@@ -494,8 +524,10 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         stacks = [_unstack(stacked, repeats) for stacked in params["layers"]]
+        seen = [_grad_records(stacked) for stacked in params["layers"]]
         for rep in range(repeats):
-            x, period_aux = _remat(period_fn, x, [st[rep] for st in stacks])
+            x, period_aux = _remat(period_fn, x, [_placed_grads(st[rep], sn)
+                                                  for st, sn in zip(stacks, seen)])
             if period_aux is not None:
                 aux = aux + period_aux
         return rms_norm(params["norm"], x, eps), aux

@@ -33,7 +33,10 @@ assertion in DTensor's dispatch (torch 2.13), and torch 2.11's
 Written out, every pair keeps the slot the reference's global cumulative
 sum gives it, so the same pairs are dropped as the capacity binds: each
 rank offsets its own cumulative sum by the counts of the ranks that hold
-earlier rows of the batch.
+earlier rows of the batch. A rank holds only its own experts' part of the
+buffer and of the expert output, [E/m, C, d] for experts split over m
+ranks of 'model': it scatters the pairs routed to its experts, and the
+pairs' output rows are summed over 'model' before the gated sum.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.distribution.sharding import shard_index
 from repro_torch.models.layers import (
@@ -51,6 +54,7 @@ from repro_torch.models.layers import (
     init_linear,
     local_placements,
     row_placements,
+    rule_placements,
     shard,
     to_local,
 )
@@ -96,16 +100,27 @@ def _route(xf: torch.Tensor, w: torch.Tensor, top_k: int, normalize: bool):
     return probs, gate_vals, expert_idx
 
 
-def _dispatch(xf: torch.Tensor, expert_idx: torch.Tensor, n_experts: int, cap: int,
-              offset: torch.Tensor | None = None):
-    """(flat experts [TK], slots [TK], keep [TK], buffer [E, C, d]): each
+def _pair_rows(xf: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Each (token, choice) pair's token row [TK, d], row-major."""
+    token_of_pair = torch.arange(xf.shape[0] * top_k, device=xf.device) // top_k
+    return xf[token_of_pair]
+
+
+def _dispatch(pairs: torch.Tensor, expert_idx: torch.Tensor, n_experts: int, cap: int,
+              offset: torch.Tensor | None = None, first: int = 0, n_local: int | None = None):
+    """(experts [TK], slots [TK], keep [TK], buffer [n_local, C, d], mine
+    [TK]) of the pairs whose token rows are ``pairs`` [TK, d]: each
     (token, choice) pair's slot is its rank among the pairs routed to its
-    expert in row-major order, plus ``offset[e]`` (the pairs of earlier rows
-    held elsewhere); pairs at or over ``cap`` are dropped and add zeros into
-    slot 0."""
-    T, d = xf.shape
-    top_k = expert_idx.shape[-1]
-    flat_expert = expert_idx.reshape(T * top_k)  # row-major: pair p = t*k + j
+    expert in row-major order, plus ``offset[e]`` (the pairs of earlier
+    rows held elsewhere); ``keep`` drops the pairs at or over ``cap``.
+    The kept pairs routed to experts ``first`` .. ``first + n_local - 1``
+    (all by default; ``mine``) are scattered into a buffer of those
+    experts, ``experts`` being each pair's index there (0 for a pair of
+    another expert); every other pair adds zeros (a dropped pair into
+    slot 0 of its expert, as ``.at[].add`` does)."""
+    TK, d = pairs.shape
+    n_local = n_local or n_experts
+    flat_expert = expert_idx.reshape(TK)  # row-major: pair p = t*k + j
     onehot = F.one_hot(flat_expert, n_experts)  # [TK, E]
     pos_all = onehot.cumsum(dim=0) - 1
     if offset is not None:
@@ -114,12 +129,16 @@ def _dispatch(xf: torch.Tensor, expert_idx: torch.Tensor, n_experts: int, cap: i
     keep = pos < cap
     pos_c = torch.where(keep, pos, torch.zeros_like(pos))
 
-    token_of_pair = torch.arange(T * top_k, device=xf.device) // top_k
-    gathered = torch.where(keep[:, None], xf[token_of_pair], torch.zeros((), dtype=xf.dtype,
-                                                                         device=xf.device))
-    expert_in = torch.zeros((n_experts, cap, d), dtype=xf.dtype, device=xf.device)
-    expert_in.index_put_((flat_expert, pos_c), gathered, accumulate=True)
-    return flat_expert, pos_c, keep, expert_in
+    experts, mine = flat_expert, keep
+    if n_local != n_experts:
+        ours = (flat_expert >= first) & (flat_expert < first + n_local)
+        experts = torch.where(ours, flat_expert - first, torch.zeros_like(flat_expert))
+        mine = keep & ours
+    gathered = torch.where(mine[:, None], pairs, torch.zeros((), dtype=pairs.dtype,
+                                                             device=pairs.device))
+    expert_in = torch.zeros((n_local, cap, d), dtype=pairs.dtype, device=pairs.device)
+    expert_in.index_put_((experts, pos_c), gathered, accumulate=True)
+    return experts, pos_c, keep, expert_in, mine
 
 
 def _experts(params: Params, expert_in: torch.Tensor, dtype) -> torch.Tensor:
@@ -127,21 +146,19 @@ def _experts(params: Params, expert_in: torch.Tensor, dtype) -> torch.Tensor:
     are placed as the buffer is (experts over 'model', rows gathered)."""
     wi, wg, wo = (params[k].to(dtype) for k in ("wi", "wg", "wo"))
     if isinstance(expert_in, DTensor):
-        # Without an act_expert rule the buffer is still a Partial sum.
-        mesh = expert_in.device_mesh
-        pl = [Replicate() if p.is_partial() else p for p in expert_in.placements]
-        expert_in = expert_in.redistribute(mesh, pl)
+        mesh, pl = expert_in.device_mesh, expert_in.placements
         wi, wg, wo = (w.redistribute(mesh, pl) for w in (wi, wg, wo))
     h = F.silu(torch.bmm(expert_in, wg)) * torch.bmm(expert_in, wi)
     h = shard(h, "act_expert_ffn")
     return torch.bmm(h, wo)  # [E, C, d]
 
 
-def _combine(expert_out, flat_expert, pos_c, keep, gate_vals, T: int, d: int):
-    """Each token's gated sum of its kept pairs' expert outputs [T, d]."""
+def _gated_sum(out_pairs: torch.Tensor, keep: torch.Tensor, gate_vals: torch.Tensor,
+               T: int, d: int) -> torch.Tensor:
+    """Each token's gated sum [T, d] of its kept pairs' expert outputs
+    ``out_pairs`` [TK, d]."""
     top_k = gate_vals.shape[-1]
-    out_pairs = expert_out[flat_expert, pos_c]  # [TK, d]
-    dt = expert_out.dtype
+    dt = out_pairs.dtype
     out_pairs = out_pairs * (gate_vals.reshape(T * top_k, 1).to(dt) * keep[:, None].to(dt))
     return out_pairs.reshape(T, top_k, d).sum(dim=1)
 
@@ -168,16 +185,18 @@ def moe_ffn(
     aux = n_experts * (me * ce).sum()
 
     cap = capacity(T, top_k, n_experts, capacity_factor)
-    flat_expert, pos_c, keep, expert_in = _dispatch(xf, expert_idx, n_experts, cap)
+    flat_expert, pos_c, keep, expert_in, _ = _dispatch(_pair_rows(xf, top_k), expert_idx,
+                                                       n_experts, cap)
     expert_in = shard(expert_in, "act_expert")
     expert_out = _experts(params, expert_in, x.dtype)
-    out = _combine(expert_out, flat_expert, pos_c, keep, gate_vals, T, d)
+    out = _gated_sum(expert_out[flat_expert, pos_c], keep, gate_vals, T, d)
     return out.reshape(B, S, d), aux
 
 
 def _sharded_moe(params: Params, x: DTensor, n_experts: int, top_k: int,
                  capacity_factor: float, normalize: bool) -> tuple[DTensor, DTensor]:
-    """:func:`moe_ffn` of a DTensor ``x``, the reference's slots and drops.
+    """:func:`moe_ffn` of a DTensor ``x``, the reference's slots and drops,
+    each rank holding only its own experts' part of the expert buffer.
 
     Each rank routes its own rows (the batch split of ``x``; ranks that
     share rows repeat the same work) with the router gathered; the aux
@@ -185,12 +204,22 @@ def _sharded_moe(params: Params, x: DTensor, n_experts: int, top_k: int,
     token count. The rank's pairs take their global slots: its cumulative
     sum offset by the per-expert counts of the shards of earlier rows (an
     all-gather of [E] integers), so ``keep`` drops exactly the
-    reference's pairs. The kept pairs are scattered into a local [E, C, d]
-    buffer; slots are disjoint across the batch's shards, so the buffers
-    are a ``Partial`` sum, placed by ``act_expert`` (experts over 'model')
-    for the expert FFN. Its output is gathered, and each rank combines
-    its own pairs. The local parts declare their gradients
-    (:func:`repro_torch.models.layers.local_placements`)."""
+    reference's pairs.
+
+    ``act_expert`` places the experts over 'model' (m ranks). A rank
+    scatters only its pairs whose expert lies in its own 'model' shard,
+    into a local [E/m, C, d] buffer; slots are disjoint across the
+    batch's shards, so the sum of those buffers over the mesh dims that
+    split the batch is exact (each slot holds one pair's row and zeros).
+    The expert FFN runs on that DTensor. A rank then takes its pairs'
+    output rows [TK, d] from its own experts, zeros for the pairs of other
+    experts, and the rows are summed over 'model' among the ranks that
+    share them (again one row and zeros). The gate product and the sum
+    over k run in the reference's order, so every value equals the full
+    buffer's. The pairs' input rows pass through an identity whose
+    backward sums their gradients over 'model' the same way, before the
+    sum over each token's k pairs. The local parts declare their
+    gradients (:func:`repro_torch.models.layers.local_placements`)."""
     mesh = x.device_mesh
     B, S, d = x.shape
     T = B * S
@@ -212,8 +241,45 @@ def _sharded_moe(params: Params, x: DTensor, n_experts: int, top_k: int,
     if any(p.is_shard(0) for p in rows):
         every = DTensor.from_local(counts[None], mesh, rows, run_check=False).full_tensor()
         offset = every[:shard_index(mesh, rows, 0)].sum(dim=0)
-    flat_expert, pos_c, keep, buf = _dispatch(xf, expert_idx, n_experts, cap, offset)
-    expert_in = shard(DTensor.from_local(buf, mesh, part, run_check=False), "act_expert")
-    expert_out = to_local(_experts(params, expert_in, x.dtype), full, part)
-    out = _combine(expert_out, flat_expert, pos_c, keep, gate_vals, Bl * S, d)
+    split = _expert_split(mesh, rows, (n_experts, cap, d))
+    placed, grads = local_placements(rows, split)
+    n_local = n_experts // math.prod(mesh.size(i) for i in split)
+    pairs = _grad_summed(_pair_rows(xf, top_k), mesh, rows, split)
+    experts, pos_c, keep, buf, mine = _dispatch(pairs, expert_idx, n_experts, cap, offset,
+                                                shard_index(mesh, placed, 0) * n_local, n_local)
+    expert_in = DTensor.from_local(buf, mesh, grads, run_check=False).redistribute(mesh, placed)
+    expert_in = shard(expert_in, "act_expert")
+    expert_out = to_local(_experts(params, expert_in, x.dtype), placed, grads)
+    out_pairs = expert_out[experts, pos_c]
+    if split:
+        out_pairs = _summed(torch.where(mine[:, None], out_pairs, torch.zeros(
+            (), dtype=out_pairs.dtype, device=out_pairs.device)), mesh, rows, split)
+    out = _gated_sum(out_pairs, keep, gate_vals, Bl * S, d)
     return DTensor.from_local(out.reshape(Bl, S, d), mesh, rows, run_check=False), aux
+
+
+def _expert_split(mesh, rows: list, shape: tuple) -> dict[int, int]:
+    """The mesh dims of more than one rank over which ``act_expert`` splits
+    the experts (dim 0 of the [E, C, d] buffer), as ``{mesh dim: 0}``;
+    none without a rule. A mesh dim that also splits the batch is left
+    out: its ranks hold different rows, so each keeps every expert's part
+    of the buffer, which ``shard`` then splits as before."""
+    pl = rule_placements("act_expert", shape) or ()
+    return {i: 0 for i, p in enumerate(pl)
+            if p.is_shard(0) and mesh.size(i) > 1 and not rows[i].is_shard(0)}
+
+
+def _grad_summed(t: torch.Tensor, mesh, rows: list, split: dict) -> torch.Tensor:
+    """``t`` (rows placed as ``rows``), whose gradient is summed over the
+    mesh dims of ``split``: each of those ranks holds a part of it."""
+    if not split:
+        return t
+    grad = [Partial() if i in split else p for i, p in enumerate(rows)]
+    return DTensor.from_local(t, mesh, rows, run_check=False).to_local(grad_placements=grad)
+
+
+def _summed(t: torch.Tensor, mesh, rows: list, split: dict) -> torch.Tensor:
+    """The sum of ``t`` over the mesh dims of ``split`` (rows placed as
+    ``rows``); every rank gets the whole gradient."""
+    pl = [Partial() if i in split else p for i, p in enumerate(rows)]
+    return DTensor.from_local(t, mesh, pl, run_check=False).redistribute(mesh, rows).to_local()

@@ -570,13 +570,15 @@ def _zero_carry(gx: torch.Tensor) -> tuple:
 
 def _slstm_scan(wh: Params, gx: torch.Tensor) -> tuple[torch.Tensor, tuple]:
     """The sLSTM time loop over plain gate inputs gx [B, S, 4d] from a zero
-    state: (h [B, S, d], final carry)."""
-    B, S, d4 = gx.shape
-    d = d4 // 4
+    state: (h [B, S, d], final carry). The steps' gate inputs come from one
+    ``unbind``, whose backward stacks the S step gradients once (a slice
+    ``gx[:, t]`` a step would build a full [B, S, 4d] gradient every step
+    and sum the S of them)."""
+    d = gx.shape[-1] // 4
     carry = _zero_carry(gx)
     hs = []
-    for t in range(S):
-        carry, h_t = _slstm_cell(wh, d, gx[:, t], carry)
+    for gx_t in gx.unbind(1):
+        carry, h_t = _slstm_cell(wh, d, gx_t, carry)
         hs.append(h_t)
     return torch.stack(hs, dim=1), carry
 

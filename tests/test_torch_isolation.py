@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor any module of
-the JAX package, and an entry point called without ``device`` on a
+the JAX package, nor does a twin of its example scripts (``examples/torch_*.py``,
+``tools/torch_*.py``), and an entry point called without ``device`` on a
 machine without a CUDA card raises instead of running on the CPU."""
 
 import os
@@ -193,3 +194,56 @@ def test_kernel_operators_refuse_other_devices(op):
         attention.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="device"):
         attention.decode_attention(q[:, 0], k, k, 2)
+
+
+TWINS = ["examples/torch_quickstart.py", "examples/torch_schedule_cluster.py",
+         "examples/torch_serve_jobs.py", "examples/torch_serve_batched.py",
+         "examples/torch_train_e2e.py", "tools/torch_trace_report.py"]
+
+
+def test_every_twin_is_listed():
+    root = Path(SRC).parent
+    found = sorted(str(p.relative_to(root)) for d in ("examples", "tools")
+                   for p in (root / d).glob("torch_*.py"))
+    assert found == sorted(TWINS)
+
+
+@pytest.fixture(scope="module")
+def twins_loaded() -> dict:
+    """The modules of JAX and of the JAX package loaded after each twin's
+    module body (not its ``main``) ran, the twins loaded in turn in one
+    process."""
+    code = textwrap.dedent(
+        f"""
+        import importlib.util, json, sys
+        out = {{}}
+        for rel in {TWINS!r}:
+            spec = importlib.util.spec_from_file_location("twin", {str(Path(SRC).parent)!r} + "/" + rel)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+            out[rel] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print(json.dumps(out))
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": SRC}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    import json
+
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("twin", TWINS)
+def test_twin_loads_neither_jax_nor_reference_package(twin, twins_loaded):
+    """A twin of the JAX package's example scripts names neither package in any
+    import of its syntax tree, and loading it loads neither."""
+    import ast
+
+    tree = ast.parse((Path(SRC).parent / twin).read_text())
+    names = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for alias in node.names]
+    names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+    assert any(n.startswith("repro_torch") for n in names)
+    assert [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")] == []
+    assert twins_loaded[twin] == []

@@ -211,15 +211,16 @@ def test_fake_implementations_give_the_plain_versions_shapes_and_dtypes():
 def test_traced_slstm_loop_counts_as_the_whole_loop(S):
     """In the dry run's trace (``dryrun.traced_loops``, fake tensors) the
     sLSTM time loop is traced one step and counted S times (forward, and
-    the backward's weight, input and carry gradients, and autograd's S - 1
-    sums of the steps' full-size gradients of the gate inputs): the same
-    FLOPs as the loop run step by step on real tensors, HBM bytes within
-    2% (the shared elementwise ops of the step's backward are counted for
-    both of its gradient parts; measured +0.9% at S 48, +0.3% at S 256),
-    and the peak memory within 10%: the S steps' saved tensors are held as
-    one allocation through the backward, whose per-step temporaries the
-    trace has once (measured +1.4% at S 48, -2.7% at S 256, -3.4% at S
-    1,024; +15% at S 6, where the first step, which saves less, weighs)."""
+    the backward's weight, step-input and carry gradients, and the one
+    stack of the S step-input gradients that ``unbind``'s backward makes):
+    the same FLOPs as the loop run step by step on real tensors, HBM bytes
+    within 2% (the shared elementwise ops of the step's backward are
+    counted for both of its gradient parts; measured +1.4% at S 48 and
+    256), and the peak memory within 10%: the S steps' saved tensors are
+    held as one allocation through the backward, whose per-step
+    temporaries the trace has once (measured +3.9% at S 48 and 256, +3.2%
+    at S 1,024; +18% at S 6, where the first step, which saves less,
+    weighs)."""
     from torch.distributed._tools.mem_tracker import MemTracker
 
     from repro_torch.launch import dryrun
