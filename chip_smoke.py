@@ -11,7 +11,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
   0. prints the card's name and power limit, the torch and CUDA versions,
      the build time, the registers, spills and shared memory of each bf16
      flash instantiation, and the registers and spills of each decode,
-     cpm and flash backward one (a cpm or backward spill fails the run);
+     cpm, stage-2 and flash backward one (a cpm, stage-2 or backward spill
+     fails the run);
   1. holds every kernel entry point against its plain PyTorch version on
      the card (tolerance 0: ``torch.equal``) at the offline main-path
      shape, the serving shape and ragged shapes, and times both with CUDA
@@ -19,12 +20,18 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      in a CUDA graph); the fused stage-1 kernels (``fleet_lb``,
      ``fleet_lb_masked``) take the stage-1 inputs of phase 2's fleet, and
      one stage-1 launch as the engine makes it is split into its
-     host-to-device copy, launch-to-sync and copy back;
+     host-to-device copy, launch-to-sync and copy back; the stage-2 kernel
+     (``fleet_evaluate``) takes phase 2's fleet at the offline (16 x 8,192
+     rows) and serving (8 x 512) shapes, plain, under a topology and
+     wired-only (n_chan 1), against ``ref_fleet_evaluate`` with
+     ``torch.equal``, timed by CUDA events and in a CUDA graph beside the
+     plain version and its bound, and one launch as the engine makes it is
+     split as stage 1's is, with the device's busy share of that span;
   2. solves the stress lane's 16-job production fleet offline with
      ``schedule_fleet`` at the engine defaults, with and without a
      restricted topology (wall, stage-1 and stage-2 ms a launch, peak
-     device memory), and checks fleet == solo, feasibility, and card ==
-     CPU on a 4-instance subset;
+     device memory, kernel launches), and checks fleet == solo,
+     feasibility, and card == CPU on a 4-instance subset;
   3. serves the ``production_fleet`` golden stream (exact fingerprint),
      a 200-job production stream with the default fleet policy, and the
      same stream under ``topology="matching"``;
@@ -76,8 +83,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      optimal <= greedy and <= serial. Last, phase 4's 20-job serve again
      under a ``Tracer``, written by ``write_chrome_trace`` and read back by
      ``load_trace``: one breakdown row per epoch and a finite, positive
-     commit latency. The phase's cpm launches are counted from 0 and
-     ``fleet_lb`` must have run;
+     commit latency. The phase's scheduler kernel launches are counted
+     from 0 and ``fleet_lb`` and ``fleet_evaluate`` must have run;
   7. serves the expert, recurrent and cross-attention families at their
      published widths through ``serve_model`` (seed-0 bf16 weights, 4
      requests each, one model on the card at a time): jamba-v0.1-52b cut
@@ -154,7 +161,8 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      launches equal;
   11. runs the twins of the JAX package's example scripts as a user runs them, each
      in a process of its own at its defaults: ``examples/torch_quickstart.py``,
-     ``torch_serve_jobs.py`` (``cpm_fleet_lb`` must launch),
+     ``torch_serve_jobs.py`` (``cpm_fleet_lb`` and ``fleet_evaluate`` must
+     launch),
      ``torch_serve_batched.py`` (flash and decode) and ``torch_train_e2e.py``
      (200 steps, the forward with lse and the three backward kernels), then
      the last again over its checkpoint, which must resume at step 101;
@@ -208,8 +216,8 @@ GOLDEN_FLEET_COUNTERS = dict(
 
 # The port's own kernels (csrc/*.cu), reported by name in every profile.
 PORT_KERNELS = ("cpm_lanes_kernel", "cpm_fleet_kernel", "cpm_rows_kernel",
-                "cpm_fleet_rows_kernel", "flash_fwd_", "decode_split_kernel",
-                "decode_combine_kernel", "flash_bwd_")
+                "cpm_fleet_rows_kernel", "fleet_evaluate_kernel", "flash_fwd_",
+                "decode_split_kernel", "decode_combine_kernel", "flash_bwd_")
 
 SERVE_JOBS = 200
 PROFILE_JOBS = 20
@@ -223,6 +231,7 @@ SOURCE = {
     "critical_path": CSRC + "cpm.cu",
     "fleet_lb": CSRC + "cpm.cu",
     "fleet_lb_masked": CSRC + "cpm.cu",
+    "fleet_evaluate": CSRC + "stage2.cu",
     "flash_attention": CSRC + "flash_attention.cu",
     "decode_attention": CSRC + "decode_attention.cu",
     "flash_attention_lse": CSRC + "flash_attention.cu",
@@ -237,6 +246,9 @@ REPLACES = {
     # with the device program around it, src/repro/core/vectorized.py:455
     "fleet_lb": "src/repro/kernels/cpm.py:93",
     "fleet_lb_masked": "src/repro/kernels/cpm.py:101",
+    # No Pallas kernel: the JAX package's stage-2 device program, a
+    # lax.scan compiled to one program a call.
+    "fleet_evaluate": "src/repro/core/vectorized.py:188",
     "flash_attention": "src/repro/kernels/flash_attention.py:29",
     "decode_attention": "src/repro/kernels/decode_attention.py:27",
     # The Pallas kernel's forward with the residual lse of the custom VJP's
@@ -570,9 +582,68 @@ def stage1_inputs(np, torch, instances, rows: int, seed: int):
     return rack, iid, tables, dims
 
 
+def stage2_inputs(np, torch, instances, rows: int, seed: int, use_wireless: bool = True):
+    """The engine's stage-2 inputs for ``rows`` random candidates of each
+    instance (as ``_run_fleet.launch_stage2`` packs them: int32 racks and
+    instance ids on the host, padded tasks on rack 0) and the fleet's op
+    tables on the card."""
+    from repro_torch.core.simulator import build_op_tables
+    from repro_torch.core.vectorized import _build_eval_stack, _fleet_dims
+
+    ops = [build_op_tables(inst) for inst in instances]
+    dims = _fleet_dims(instances, use_wireless, ops)
+    tables = _build_eval_stack(instances, dims, use_wireless, torch.device("cuda"), ops)
+    rng = np.random.default_rng(seed)
+    B = len(instances) * rows
+    rack = np.zeros((B, dims.n_pad), np.int32)
+    iid = np.zeros(B, np.int32)
+    for i, inst in enumerate(instances):
+        n = inst.job.n_tasks
+        rack[i * rows:(i + 1) * rows, :n] = rng.integers(0, inst.n_racks, (rows, n))
+        iid[i * rows:(i + 1) * rows] = i
+    return rack, iid, tables, dims
+
+
+def stage2_bound(np, instances, rack, iid, tables, dims) -> tuple[float, str]:
+    """Least ms of one stage-2 launch on these rows: the racks and instance
+    ids (int32) and the op tables read once, a float a row written once;
+    operations are the float32 ones these rows' walks need: per task its
+    in-edges' maxes with the rack's and one add, per co-located edge one
+    add, per cross-rack edge a reach product, a max, an add and a compare a
+    channel, and the makespan's n_pad - 1 maxes."""
+    nbytes = rack.nbytes + iid.nbytes + sum(t.numel() * t.element_size() for t in tables)
+    nbytes += 4 * rack.shape[0]
+    ops = 0
+    for i, inst in enumerate(instances):
+        rows = rack[iid == i]
+        if not len(rows):
+            continue
+        job = inst.job
+        ops += len(rows) * (job.n_edges + 2 * job.n_tasks + dims.n_pad - 1)
+        if job.n_edges:
+            cross = int((rows[:, job.edges[:, 0]] != rows[:, job.edges[:, 1]]).sum())
+            ops += cross * 4 * dims.n_chan + len(rows) * job.n_edges - cross
+    return _larger(nbytes, ops, F32_OPS_PER_S)
+
+
+def scheduler_launches() -> dict:
+    """The scheduler kernels' launch counts (cpm and stage 2) by entry point."""
+    from repro_torch.kernels import cpm, stage2
+
+    return {**cpm.launches, **stage2.launches}
+
+
+def reset_scheduler_launches() -> None:
+    from repro_torch.kernels import cpm, stage2
+
+    for counts in (cpm.launches, stage2.launches):
+        for k in counts:
+            counts[k] = 0
+
+
 def cpm_ptxas(log: str) -> list[dict]:
-    """Registers and spills of each function in cpm.cu's ``-Xptxas -v``
-    report (mangled names)."""
+    """Registers and spills of each function in cpm.cu's (or stage2.cu's)
+    ``-Xptxas -v`` report (mangled names)."""
     out, cur = [], None
     for line in log.splitlines():
         if "Function properties for" in line:
@@ -752,9 +823,10 @@ def library_ms(torch, fn):
 
 def stage2_bound_ms(torch, instances, batch_size: int) -> float:
     """Least ms of one stage-2 launch by bytes: the candidate block
-    (int64 [B, n_pad]) and row instance ids (int64 [B]) read once, the op
-    tables of ``_build_eval_stack`` read once, the makespans (f32 [B])
-    written once."""
+    (int32 [B, n_pad], as ``_rows_to_device`` copies it to the card) and
+    row instance ids (int32 [B]) read once, the op tables of
+    ``_build_eval_stack`` read once, the makespans (f32 [B]) written
+    once."""
     from repro_torch.core.simulator import build_op_tables
     from repro_torch.core.vectorized import _build_eval_stack, _fleet_dims
 
@@ -762,7 +834,7 @@ def stage2_bound_ms(torch, instances, batch_size: int) -> float:
     dims = _fleet_dims(instances, True, tables)
     stack = _build_eval_stack(instances, dims, True, torch.device("cpu"), tables)
     B = len(instances) * batch_size
-    nbytes = B * dims.n_pad * 8 + B * 8 + sum(t.nbytes for t in stack) + B * 4
+    nbytes = B * dims.n_pad * 4 + B * 4 + sum(t.nbytes for t in stack) + B * 4
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -918,7 +990,7 @@ def serving_phases(np, torch) -> dict:
     """5b full-width serve (the serving main path; returns its attention
     launch counts), its profile, and 5c long-cache decode."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import attention, cpm
+    from repro_torch.kernels import attention, cpm, stage2
     from repro_torch.launch.serve import serve_model
     from repro_torch.models.lm import build_model, count_params
     from repro_torch.runtime.steps import build_prefill_step, build_serve_step
@@ -938,7 +1010,7 @@ def serving_phases(np, torch) -> dict:
         rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).cuda()
 
     # -- 5b. the serving main path: every count to 0 just before -----------
-    for counts in (cpm.launches, attention.launches):
+    for counts in (cpm.launches, stage2.launches, attention.launches):
         for k in counts:
             counts[k] = 0
     res = serve_model(model, params, prompts, SERVE_GEN)
@@ -2592,8 +2664,8 @@ def sampled_updates(params, strides, samples) -> list:
 def production_scenario(np, torch, stream) -> None:
     """6. The paper's production scenario with the exact optimum as the
     oracle, the stage-1 bound on the card against it, the gradient-sync
-    planner and the trace exporters; the phase's cpm launches counted
-    from 0."""
+    planner and the trace exporters; the phase's scheduler kernel launches
+    counted from 0."""
     from repro_torch.configs import get_config
     from repro_torch.core import (
         ProblemInstance, check_feasible, random_job, solve_bisection, solve_bnb,
@@ -2613,16 +2685,16 @@ def production_scenario(np, torch, stream) -> None:
     )
     from repro_torch.online import OnlineScheduler
 
-    for k in cpm.launches:
-        cpm.launches[k] = 0
+    reset_scheduler_launches()
     t_phase = time.perf_counter()
 
     # -- the fleet on the card, each job's optima by B&B: the example itself ----
     scenario = load_script("examples/torch_schedule_cluster.py").main(
         ["--jobs", str(SCENARIO_JOBS), "--time-limit", str(SCENARIO_BNB_S)])
     fleet = scenario["fleet_result"]
-    fleet_launches = dict(cpm.launches)
+    fleet_launches = scheduler_launches()
     check(fleet_launches["fleet_lb"] > 0, "scenario fleet launched no fleet_lb")
+    check(fleet_launches["fleet_evaluate"] > 0, "scenario fleet launched no fleet_evaluate")
     n_proved = 0
     for j, (inst, rv, job) in enumerate(zip(scenario["instances"], fleet.results,
                                             scenario["jobs"])):
@@ -2720,8 +2792,9 @@ def production_scenario(np, torch, stream) -> None:
          prometheus_bytes=len(prom), prometheus_lines=len(prom.splitlines()),
          report_head=report.splitlines()[:8])
 
-    launches = dict(cpm.launches)
+    launches = scheduler_launches()
     check(launches["fleet_lb"] > 0, "phase 6 never launched fleet_lb")
+    check(launches["fleet_evaluate"] > 0, "phase 6 never launched fleet_evaluate")
     emit("scenario_phase", seconds=time.perf_counter() - t_phase, launches=launches)
 
 
@@ -2734,7 +2807,7 @@ import json, math, sys
 sys.path.insert(0, "src")
 import numpy as np
 import chip_smoke
-from repro_torch.kernels import attention, cpm
+from repro_torch.kernels import attention, cpm, stage2
 
 def numbers(x):
     if isinstance(x, dict):
@@ -2749,7 +2822,7 @@ def numbers(x):
     return None
 
 out = chip_smoke.load_script(sys.argv[1]).main(json.loads(sys.argv[2]))
-print(json.dumps({"launches": {**cpm.launches, **attention.launches},
+print(json.dumps({"launches": {**cpm.launches, **stage2.launches, **attention.launches},
                   "numbers": numbers(out)}))
 """
 EXAMPLE_TIMEOUT_S = 600
@@ -2760,7 +2833,7 @@ def example_phases(np, torch) -> None:
     in a process of its own at its defaults (the first three beside the
     first training run): ``examples/torch_quickstart.py``
     (host only), ``torch_serve_jobs.py`` (the online scheduler: the
-    ``cpm_fleet_lb`` kernel), ``torch_serve_batched.py`` (prefill: flash;
+    ``cpm_fleet_lb`` and ``fleet_evaluate`` kernels), ``torch_serve_batched.py`` (prefill: flash;
     serve steps: decode) and ``torch_train_e2e.py`` (its 200 steps into a
     temporary checkpoint directory: flash with lse and the three backward
     kernels; then the same command again, which resumes from the
@@ -2831,7 +2904,8 @@ def example_phases(np, torch) -> None:
         argv = ["--ckpt-dir", str(Path(tmp) / "ckpt")]
         whole = run([("train_e2e", script, argv, train),
                      ("quickstart", "examples/torch_quickstart.py", [], ()),
-                     ("serve_jobs", "examples/torch_serve_jobs.py", [], ("fleet_lb",)),
+                     ("serve_jobs", "examples/torch_serve_jobs.py", [],
+                      ("fleet_lb", "fleet_evaluate")),
                      ("serve_batched", "examples/torch_serve_batched.py", [],
                       ("flash_attention", "decode_attention"))], tmp)[0]
         resumed, = run([("train_e2e_resumed", script, argv, train)], tmp)
@@ -2857,7 +2931,7 @@ def main() -> int:
     from repro_torch.core import check_feasible
     from repro_torch.core.instance import Topology
     from repro_torch.core.vectorized import schedule_fleet, vectorized_search
-    from repro_torch.kernels import build, cpm, ref
+    from repro_torch.kernels import build, cpm, ref, stage2
     from repro_torch.obs import Tracer
     from repro_torch.online import OnlineScheduler, production_arrivals
 
@@ -2891,6 +2965,12 @@ def main() -> int:
     for f in cpm_fns:
         check(f.get("spill_store_bytes", 0) == 0 and f.get("spill_load_bytes", 0) == 0,
               f"cpm.cu spills in {f['function']}")
+    s2_fns = cpm_ptxas(build.build_log(build.SOURCES["stage2"]))
+    emit("stage2_ptxas", functions=s2_fns)
+    check(len(s2_fns) > 0, "no ptxas report for stage2.cu")
+    for f in s2_fns:
+        check(f.get("spill_store_bytes", 0) == 0 and f.get("spill_load_bytes", 0) == 0,
+              f"stage2.cu spills in {f['function']}")
     bwd_fns = flash_bwd_ptxas(build.build_log(build.SOURCES["flash_attention_bwd"]),
                               build.load("flash_attention_bwd"))
     emit("flash_bwd_ptxas", instantiations=bwd_fns)
@@ -2924,7 +3004,7 @@ def main() -> int:
         ("ragged32", 257, 32, None),
         ("ragged128", 257, 128, None),
     ]
-    max_err = {k: 0.0 for k in cpm.launches}
+    max_err = {k: 0.0 for k in scheduler_launches()}
     table = {}
     for label, B, n, n_iters in shapes:
         w, p, extra, mask = lb_inputs(np, torch, rng, B, n)
@@ -2967,7 +3047,7 @@ def main() -> int:
 
     # The fused stage-1 kernels on phase 2's fleet: offline (16 jobs x 8192
     # candidates) and serving (8 x 512) shapes, without and with a topology.
-    from repro_torch.core.vectorized import _rows_to_device
+    from repro_torch.core.vectorized import _rows_to_device, _stage2_devices
 
     dev = torch.device("cuda")
     for label, rows, n_inst in (("offline", 8192, 16), ("serving", 512, 8)):
@@ -3050,14 +3130,66 @@ def main() -> int:
             del r32, i32, tables, got, want
     torch.cuda.empty_cache()
 
+    # Stage 2 (fleet_evaluate) on phase 2's fleet at the offline and serving
+    # shapes: plain, under a topology, and wired-only (n_chan 1).
+    name = "fleet_evaluate"
+    for label, rows, n_inst in (("offline", 8192, 16), ("serving", 512, 8)):
+        for arm, fleet_insts, wireless in (("plain", insts, True), ("topology", topo_insts, True),
+                                           ("wired_only", insts, False)):
+            sub = fleet_insts[:n_inst]
+            rack, iid, tables, dims = stage2_inputs(np, torch, sub, rows, 3, wireless)
+            r32, i32 = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
+            B = rack.shape[0]
+            kw = dict(m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan)
+            kern = lambda: stage2.fleet_evaluate(r32, i32, *tables, **kw)  # noqa: E731
+            plain = lambda: ref.ref_fleet_evaluate(r32, i32, *tables, **kw)  # noqa: E731
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max().item())
+            max_err[name] = max(max_err[name], err)
+            check(torch.equal(got, want), f"{name} != plain at {label} {arm} (err {err})")
+            check(bool(torch.isfinite(got).all()), f"{name}: a makespan is not finite")
+            ms = cuda_ms(torch, kern)
+            dev_ms = graph_ms(torch, kern)
+            plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+            b_ms, b_by = stage2_bound(np, sub, rack, iid, tables, dims)
+            # One stage-2 launch as _stage2_split makes it: copy the rows in,
+            # launch and sync, copy the makespans back; the device's busy
+            # share of that span is the kernel's device time over it.
+            split = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rd, idd = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = stage2.fleet_evaluate(rd, idd, *tables, **kw)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                out.cpu().numpy()
+                t3 = time.perf_counter()
+                split.append((t1 - t0, t2 - t1, t3 - t2))
+            h2d, run, d2h = (1e3 * float(np.median(c)) for c in zip(*split))
+            emit("kernel", name=name, shape=label, arm=arm, B=B, n=dims.n_pad, m=dims.m_pad,
+                 M=dims.M_pad, n_ops=dims.n_ops, n_chan=dims.n_chan, ms=ms, device_ms=dev_ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                 host_us_per_call=host_us(torch, kern))
+            emit("stage2_host_split", shape=label, arm=arm, B=B, h2d_ms=h2d,
+                 launch_to_sync_ms=run, d2h_ms=d2h, total_ms=h2d + run + d2h,
+                 h2d_bytes=rack.nbytes + iid.nbytes,
+                 busy_share=dev_ms / (h2d + run + d2h))
+            if label == "offline" and arm == "plain":
+                table[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            del r32, i32, tables, got, want
+    torch.cuda.empty_cache()
+
     # -- main path: every count to 0 just before, read just after -------------
-    for k in cpm.launches:
-        cpm.launches[k] = 0
+    reset_scheduler_launches()
     t_main = time.perf_counter()
 
     # -- 2. offline fleet -------------------------------------------------------
     def fleet_run(instances, label):
-        before = dict(cpm.launches)
+        before = scheduler_launches()
         tr = Tracer()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3068,6 +3200,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         s1 = [s.duration for s in tr.spans_named("stage1_launch")]
         s2 = [s.duration for s in tr.spans_named("stage2_launch")]
+        now = scheduler_launches()
+        launched = {k: now[k] - before[k] for k in before}
         emit("offline_fleet", arm=label, n_instances=len(instances),
              wall_s=wall, n_candidates=fleet.n_candidates,
              candidates_per_s=fleet.n_candidates / wall,
@@ -3080,11 +3214,11 @@ def main() -> int:
              stage2_ms_per_launch=1e3 * float(np.mean(s2)) if s2 else None,
              stage2_rows=8192 * len(instances),
              stage2_bound_ms=stage2_bound_ms(torch, instances, 8192),
-             kernel_launches={k: cpm.launches[k] - before[k] for k in before},
+             kernel_launches=launched,
              makespans=[float(m) for m in fleet.makespans])
         for inst, res in zip(instances, fleet.results):
             check_feasible(inst, res.schedule)
-        return fleet, {k: cpm.launches[k] - before[k] for k in before}, wall
+        return fleet, launched, wall
 
     def same(a, b):
         return (a.makespan == b.makespan
@@ -3095,12 +3229,17 @@ def main() -> int:
 
     fleet, d, fleet_wall = fleet_run(insts, "plain")
     check(d["fleet_lb"] > 0, "offline fleet launched no fleet_lb")
+    n_cards = len(_stage2_devices(dev))  # one launch a card a stage-2 call
+    check(d["fleet_evaluate"] == n_cards * fleet.n_stage2_launches > 0,
+          f"offline fleet: {d['fleet_evaluate']} fleet_evaluate launches for "
+          f"{fleet.n_stage2_launches} stage-2 calls on {n_cards} cards")
     for i, inst in enumerate(insts):
         check(same(vectorized_search(inst), fleet.results[i]),
               f"offline fleet != solo for instance {i}")
 
     tfleet, d, _ = fleet_run(topo_insts, "topology")
     check(d["fleet_lb_masked"] > 0, "topology fleet launched no masked kernel")
+    check(d["fleet_evaluate"] > 0, "topology fleet launched no fleet_evaluate")
     for i in range(4):
         check(same(vectorized_search(topo_insts[i]), tfleet.results[i]),
               f"topology fleet != solo for instance {i}")
@@ -3132,14 +3271,15 @@ def main() -> int:
                                  n_wireless=2)
 
     def serve(label, **kw):
-        before = dict(cpm.launches)
+        before = scheduler_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         # serve() ends with the timeline's feasibility audit
         # (ClusterTimeline.assert_feasible), which raises on any overlap.
         out = OnlineScheduler(8, 2, window=5.0, seed=0, **kw).serve(stream)
         wall = time.perf_counter() - t
-        launched = {k: cpm.launches[k] - before[k] for k in before}
+        now = scheduler_launches()
+        launched = {k: now[k] - before[k] for k in before}
         check(out.n_served == SERVE_JOBS, f"{label}: served {out.n_served}")
         check(np.isfinite(out.mean_jct), f"{label}: mean JCT not finite")
         emit("serve", arm=label, n_jobs=SERVE_JOBS, n_served=out.n_served,
@@ -3153,15 +3293,16 @@ def main() -> int:
 
     d = serve("fleet")
     check(d["fleet_lb"] > 0, "fleet serve launched no fleet_lb")
+    check(d["fleet_evaluate"] > 0, "fleet serve launched no fleet_evaluate")
     d = serve("matching", topology="matching",
               cluster_topology=Topology(reach=np.ones((8, 2), bool), degree=1,
                                         delta=0.5))
     check(d["fleet_lb_masked"] > 0, "matching serve launched no masked kernel")
 
-    main_launches = dict(cpm.launches)
+    main_launches = scheduler_launches()
     emit("main_path", seconds=time.perf_counter() - t_main,
          launches=main_launches)
-    for name in ("fleet_lb", "fleet_lb_masked"):
+    for name in ("fleet_lb", "fleet_lb_masked", "fleet_evaluate"):
         check(main_launches[name] > 0, f"main path never launched {name}")
 
     # -- 4. where the device time goes (after the main-path counts) ----------

@@ -12,8 +12,8 @@ Layers:
   bisection                   — §IV-D feasibility-subproblem decomposition
   bnb                         — combinatorial exact B&B
   vectorized                  — batched assignment search on the device
-                                (stage-1 bound in a CUDA kernel, stage 2
-                                in PyTorch)
+                                (stage-1 bound and stage-2 evaluator in
+                                CUDA kernels)
   portfolio                   — refinement strategy portfolio (mutation /
                                 crossover / annealing + yield allocator)
   coflow                      — coflow view of an admission epoch +

@@ -24,12 +24,15 @@ masks) and solved by one pair of device programs per size bucket.
   critical path prunes 0%) prune.
 
   Stage 2 (evaluate): survivors are scored by a greedy non-delay schedule
-  executed in lock-step across the batch: a loop over *static op tables*
+  executed in lock-step across the batch: a walk over *static op tables*
   in the shared layout of :func:`repro_torch.core.simulator.pad_op_tables`
-  — per-instance tables are stacked on a leading axis and gathered per
-  batch row by instance id, so candidates of **different** jobs ride in the
-  same launch. It is plain PyTorch on the device, one step per op-table
-  row.
+  — per-instance tables are stacked on a leading axis and read per batch
+  row by instance id, so candidates of **different** jobs ride in the
+  same launch. On a card it is one launch of the hand-written CUDA kernel
+  :func:`repro_torch.kernels.stage2.fleet_evaluate` per card, one thread a
+  row walking its table with its state in shared memory; on the CPU its
+  plain version is a PyTorch loop, one step of gathers and scatters per
+  op-table row.
 
 Every device operation is an add, a max, a compare, an argmin or one
 division in a fixed order, so scores, bounds and hence the whole search
@@ -75,9 +78,10 @@ from repro_torch.core import bounds as bounds_mod
 from repro_torch.core import portfolio as portfolio_mod
 from repro_torch.core.instance import ProblemInstance
 from repro_torch.core.schedule import Schedule
-from repro_torch.core.simulator import OP_EDGE, OP_TASK, build_op_tables, pad_op_tables, simulate
+from repro_torch.core.simulator import build_op_tables, pad_op_tables, simulate
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cpm as kcpm
+from repro_torch.kernels import stage2 as kstage2
 from repro_torch.obs.trace import as_tracer
 
 __all__ = [
@@ -205,8 +209,9 @@ def _bucket_key(device, tensors, statics) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _scan_evaluate(
-    rack,       # int64[B, n_pad]  candidate assignments (one job's tasks per row)
-    inst_id,    # int64[B]         which fleet instance each row belongs to
+    rack,       # int64[B, n_pad]  candidate assignments (one job's tasks per row;
+                #                  int32 on a CUDA device: _rows_to_device)
+    inst_id,    # int64[B]         which fleet instance each row belongs to (rack's dtype)
     kind,       # int64[I, n_ops]  OP_TASK / OP_EDGE / OP_PAD
     op_task,    # int64[I, n_ops]  task id for OP_TASK rows (0 otherwise)
     op_edge,    # int64[I, n_ops]  edge id for OP_EDGE rows (0 otherwise)
@@ -228,75 +233,21 @@ def _scan_evaluate(
     M_pad: int,
     n_chan: int,
 ):
-    """makespan[B]: the greedy non-delay schedule of every row, one step
-    per op-table row. Each step reads only the pre-step state, exactly as
-    the reference's ``lax.scan`` body; the writes are in-place gathers and
-    scatters of one element per row (rows whose op kind does not match
-    write their old value back)."""
+    """makespan[B]: the greedy non-delay schedule of every row, the
+    reference's ``lax.scan`` over the op tables, in one launch of the CUDA
+    kernel :func:`repro_torch.kernels.stage2.fleet_evaluate`; on the CPU
+    its plain version :func:`repro_torch.kernels.ref.ref_fleet_evaluate`
+    walks the tables one step of PyTorch ops per op-table row."""
     global TRACE_COUNT
     key = _bucket_key(rack.device, (rack, kind, op_in, reach), (m_pad, M_pad, n_chan))
     if key not in _seen_stage2:
         _seen_stage2.add(key)
         TRACE_COUNT += 1
-    B, n_pad = rack.shape
-    n_ops = kind.shape[1]
-    rows = torch.arange(B, device=rack.device)
-
-    def take(t):
-        # Per-row tables, op axis leading so each step reads a contiguous row.
-        return t.index_select(0, inst_id).transpose(0, 1).contiguous()
-
-    kind_s, task_s, edge_s = take(kind), take(op_task), take(op_edge)
-    src_s, dst_s = take(op_src), take(op_dst)
-    p_s, qw_s, qwl_s, rl_s = take(op_p), take(op_wired), take(op_wireless), take(op_local)
-    in_s = take(op_in)                                   # [n_ops, B, indeg_pad]
-    reach_b = reach.index_select(0, inst_id)             # [B, M_pad, n_chan]
-
-    rack_free = torch.zeros((B, M_pad), dtype=torch.float32, device=rack.device)
-    chan_free = chan_free0.index_select(0, inst_id)      # +inf = masked
-    task_fin = torch.zeros((B, n_pad), dtype=torch.float32, device=rack.device)
-    edge_fin = torch.zeros((B, m_pad + 1), dtype=torch.float32, device=rack.device)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=rack.device)
-
-    for t in range(n_ops):
-        is_task = kind_s[t] == OP_TASK
-        is_edge = kind_s[t] == OP_EDGE
-        t_v, e_id, u, v = task_s[t], edge_s[t], src_s[t], dst_s[t]
-
-        # Task branch: start when all gating in-edges have finished and the
-        # task's rack is free.
-        ready_t = edge_fin.gather(1, in_s[t]).amax(dim=1)
-        rv = rack[rows, t_v]
-        rack_old = rack_free[rows, rv]
-        fin_t = torch.maximum(ready_t, rack_old) + p_s[t]
-
-        # Edge branch: local delay when co-located, else the earliest-finish
-        # channel (0 wired, 1.. wireless); masked and topology-infeasible
-        # channels sit at +inf and are never selected. argmin takes the
-        # lowest index on ties, as jnp.argmin does.
-        ready_e = task_fin[rows, u]
-        ra, rb = rack[rows, u], rack[rows, v]
-        same = ra == rb
-        fin_local = ready_e + rl_s[t]
-        durs = torch.cat(
-            [qw_s[t][:, None], qwl_s[t][:, None].expand(B, n_chan - 1)], dim=1
-        )
-        s = torch.maximum(ready_e[:, None], chan_free)
-        feas = reach_b[rows, ra] * reach_b[rows, rb]
-        f = torch.where(feas > 0, s + durs, inf)
-        best = f.argmin(dim=1)
-        fin_net = f[rows, best]
-        fin_e = torch.where(same, fin_local, fin_net)
-
-        # Merge by per-row op kind (OP_PAD rows change nothing).
-        chan_old = chan_free[rows, best]
-        task_old = task_fin[rows, t_v]
-        edge_old = edge_fin[rows, e_id]
-        rack_free[rows, rv] = torch.where(is_task, fin_t, rack_old)
-        task_fin[rows, t_v] = torch.where(is_task, fin_t, task_old)
-        chan_free[rows, best] = torch.where(is_edge & ~same, fin_net, chan_old)
-        edge_fin[rows, e_id] = torch.where(is_edge, fin_e, edge_old)
-    return task_fin.amax(dim=1)
+    return kstage2.fleet_evaluate(
+        rack, inst_id, kind, op_task, op_edge, op_src, op_dst, op_p, op_wired,
+        op_wireless, op_local, op_in, chan_free0, reach,
+        m_pad=m_pad, M_pad=M_pad, n_chan=n_chan,
+    )
 
 
 def _build_eval_stack(instances, dims: _FleetDims, use_wireless: bool, device, op_tables=None):
@@ -346,9 +297,9 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _rows_to_device(a: np.ndarray, device) -> torch.Tensor:
-    """Stage-1 racks / instance ids -> device: int32 as they are on a CUDA
-    device (the fused kernel reads them so, half the copy's bytes), int64
-    indices on the CPU (the plain version gathers with them)."""
+    """Stage-1 and stage-2 racks / instance ids -> device: int32 as they
+    are on a CUDA device (the kernels read them so, half the copy's bytes),
+    int64 indices on the CPU (the plain versions gather with them)."""
     if torch.device(device).type == "cuda":
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
     return _to_device(a, device)
@@ -386,7 +337,8 @@ def _stage2_split(rack: np.ndarray, iid: np.ndarray, tables_on: list, devs: list
     per = rack.shape[0] // len(devs)
     return [
         _scan_evaluate(
-            _to_device(rack[i * per:(i + 1) * per], d), _to_device(iid[i * per:(i + 1) * per], d),
+            _rows_to_device(rack[i * per:(i + 1) * per], d),
+            _rows_to_device(iid[i * per:(i + 1) * per], d),
             *tables_on[i], m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan,
         )
         for i, d in enumerate(devs)

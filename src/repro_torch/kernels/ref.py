@@ -10,6 +10,12 @@ mask scatter and the contention terms in PyTorch, then
 ``ref_combined_lb``; the fused kernel ``cpm_fleet_lb`` equals it bit for
 bit.
 
+``ref_fleet_evaluate`` is the scheduler's stage 2, the twin of the JAX
+package's ``lax.scan`` evaluator
+(``src/repro/core/vectorized.py:_scan_evaluate``): one step of gathers,
+scatters and selects per op-table row; the kernel ``fleet_evaluate``
+(``csrc/stage2.cu``) equals it bit for bit.
+
 ``ref_flash_attention`` / ``ref_decode_attention`` are twins of the JAX
 package's attention oracles (``src/repro/kernels/ref.py``): float32
 scores, masked scores at -1e30, a full softmax, the output cast to q's
@@ -25,8 +31,9 @@ rounding points, on unrepeated K and V.
 ``ref_decode_attention_split`` is a plain model of the decode kernel's
 split and combine, for the tests only.
 
-The CPU routes of :mod:`repro_torch.kernels.cpm` and
-:mod:`repro_torch.kernels.attention` and the tests use them;
+The CPU routes of :mod:`repro_torch.kernels.cpm`,
+:mod:`repro_torch.kernels.stage2` and :mod:`repro_torch.kernels.attention`
+and the tests use them;
 ``chip_smoke.py`` holds the kernels against them on the card.
 """
 
@@ -43,6 +50,7 @@ __all__ = [
     "ref_combined_lb",
     "ref_fleet_lb",
     "ref_fleet_operands",
+    "ref_fleet_evaluate",
     "ref_flash_attention",
     "ref_flash_attention_bwd",
     "ref_flash_bwd_delta",
@@ -53,6 +61,8 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
+# Op-table row kinds (repro_torch/core/simulator.py: OP_TASK, OP_EDGE).
+OP_TASK, OP_EDGE = 0, 1
 
 
 def clamp_iters(n: int, n_iters: int | None) -> int:
@@ -203,6 +213,97 @@ def ref_fleet_lb(
         racks, inst_id, *tables, M_pad=M_pad, contention=contention
     )
     return ref_combined_lb(w, p, extra, mask=mask, n_iters=n_iters)
+
+
+def ref_fleet_evaluate(
+    rack,       # int[B, n_pad]    candidate assignments (one job's tasks per row)
+    inst_id,    # int[B]           which fleet instance each row belongs to
+    kind,       # int64[I, n_ops]  OP_TASK / OP_EDGE / OP_PAD
+    op_task,    # int64[I, n_ops]  task id for OP_TASK rows (0 otherwise)
+    op_edge,    # int64[I, n_ops]  edge id for OP_EDGE rows (0 otherwise)
+    op_src,     # int64[I, n_ops]  edge source task (0 otherwise)
+    op_dst,     # int64[I, n_ops]  edge dest task (0 otherwise)
+    op_p,       # f32[I, n_ops]    task duration
+    op_wired,   # f32[I, n_ops]    wired transfer duration
+    op_wireless,  # f32[I, n_ops]  wireless transfer duration
+    op_local,   # f32[I, n_ops]    local transfer delay
+    op_in,      # int64[I, n_ops, indeg_pad] in-edge ids gating a task row;
+                #                  the sentinel id m_pad always reads 0.0
+    chan_free0,  # f32[I, n_chan]  initial channel availability: 0 = usable,
+                #                  +inf = masked (instance has fewer channels)
+    reach,      # f32[I, M_pad, n_chan] topology reachability: 1 = rack may
+                #                  use the channel (col 0, wired, always 1);
+                #                  all-ones when the instance has no topology
+    *,
+    m_pad: int,
+    M_pad: int,
+    n_chan: int,
+) -> torch.Tensor:
+    """makespan[B]: the greedy non-delay schedule of every row, one step
+    per op-table row. Each step reads only the pre-step state, exactly as
+    the reference's ``lax.scan`` body; the writes are in-place gathers and
+    scatters of one element per row (rows whose op kind does not match
+    write their old value back)."""
+    rack, inst_id = rack.long(), inst_id.long()
+    B, n_pad = rack.shape
+    n_ops = kind.shape[1]
+    rows = torch.arange(B, device=rack.device)
+
+    def take(t):
+        # Per-row tables, op axis leading so each step reads a contiguous row.
+        return t.index_select(0, inst_id).transpose(0, 1).contiguous()
+
+    kind_s, task_s, edge_s = take(kind), take(op_task), take(op_edge)
+    src_s, dst_s = take(op_src), take(op_dst)
+    p_s, qw_s, qwl_s, rl_s = take(op_p), take(op_wired), take(op_wireless), take(op_local)
+    in_s = take(op_in)                                   # [n_ops, B, indeg_pad]
+    reach_b = reach.index_select(0, inst_id)             # [B, M_pad, n_chan]
+
+    rack_free = torch.zeros((B, M_pad), dtype=torch.float32, device=rack.device)
+    chan_free = chan_free0.index_select(0, inst_id)      # +inf = masked
+    task_fin = torch.zeros((B, n_pad), dtype=torch.float32, device=rack.device)
+    edge_fin = torch.zeros((B, m_pad + 1), dtype=torch.float32, device=rack.device)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=rack.device)
+
+    for t in range(n_ops):
+        is_task = kind_s[t] == OP_TASK
+        is_edge = kind_s[t] == OP_EDGE
+        t_v, e_id, u, v = task_s[t], edge_s[t], src_s[t], dst_s[t]
+
+        # Task branch: start when all gating in-edges have finished and the
+        # task's rack is free.
+        ready_t = edge_fin.gather(1, in_s[t]).amax(dim=1)
+        rv = rack[rows, t_v]
+        rack_old = rack_free[rows, rv]
+        fin_t = torch.maximum(ready_t, rack_old) + p_s[t]
+
+        # Edge branch: local delay when co-located, else the earliest-finish
+        # channel (0 wired, 1.. wireless); masked and topology-infeasible
+        # channels sit at +inf and are never selected. argmin takes the
+        # lowest index on ties, as jnp.argmin does.
+        ready_e = task_fin[rows, u]
+        ra, rb = rack[rows, u], rack[rows, v]
+        same = ra == rb
+        fin_local = ready_e + rl_s[t]
+        durs = torch.cat(
+            [qw_s[t][:, None], qwl_s[t][:, None].expand(B, n_chan - 1)], dim=1
+        )
+        s = torch.maximum(ready_e[:, None], chan_free)
+        feas = reach_b[rows, ra] * reach_b[rows, rb]
+        f = torch.where(feas > 0, s + durs, inf)
+        best = f.argmin(dim=1)
+        fin_net = f[rows, best]
+        fin_e = torch.where(same, fin_local, fin_net)
+
+        # Merge by per-row op kind (OP_PAD rows change nothing).
+        chan_old = chan_free[rows, best]
+        task_old = task_fin[rows, t_v]
+        edge_old = edge_fin[rows, e_id]
+        rack_free[rows, rv] = torch.where(is_task, fin_t, rack_old)
+        task_fin[rows, t_v] = torch.where(is_task, fin_t, task_old)
+        chan_free[rows, best] = torch.where(is_edge & ~same, fin_net, chan_old)
+        edge_fin[rows, e_id] = torch.where(is_edge, fin_e, edge_old)
+    return task_fin.amax(dim=1)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:

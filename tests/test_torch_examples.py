@@ -15,8 +15,12 @@ on the same inputs:
   bar), the port's prefill within the same bar of its own decode;
 * ``torch_train_e2e`` at 3 steps of a tiny width in float32 compute, from
   the JAX package's initial state (a checkpoint of it, which the twin
-  resumes from): losses within ``STEP_BARS["float32"]``'s 1e-5 relative,
-  each learning rate equal to the reference's schedule (evaluated eagerly:
+  resumes from): losses and grad norms within ``STEP_BARS["float32"]``'s
+  1e-5 relative (measured 1.2e-6: the reference's float32 sum of a leaf's
+  squares is itself up to 6.9e-7 off the exact one,
+  ``tests/test_torch_train.py::test_global_norm_of_large_leaves``; weights
+  scaled by (1 + 1e-7 N(0, 1)) move the reference's by at most 2.2e-7; the
+  file run as a script prints both gaps), each learning rate equal to the reference's schedule (evaluated eagerly:
   inside the jitted step XLA rounds the warm-up's division otherwise, one
   ulp off at the third step); and a run stopped
   after 2 steps and resumed from its checkpoint equals the uninterrupted
@@ -174,10 +178,12 @@ def test_serve_batched_matches_reference():
     assert got["prefill_gap"] <= tol
 
 
-def _jax_train(steps: int, d: Path) -> list[dict]:
+def _jax_train(steps: int, d: Path | None, perturb: int = 0, eps: float = 1e-7) -> list[dict]:
     """``examples/train_e2e.py``'s loop at ``TRAIN_ARGS``'s width in float32
     compute for ``steps`` steps; its initial state is written to ``d`` as
-    the checkpoint of label 0."""
+    the checkpoint of label 0. With ``perturb`` (a seed) the weights are
+    first scaled by (1 + eps N(0, 1)) and nothing is written: a run of the
+    reference's own spread."""
     import dataclasses
 
     import jax
@@ -196,7 +202,13 @@ def _jax_train(steps: int, d: Path) -> list[dict]:
                               head_dim=64, d_ff=dim * 4, vocab_size=4096)
     model = build_model(cfg, compute_dtype=jnp.float32)
     state = make_train_state(model, jax.random.PRNGKey(0))
-    ckpt.save(str(d), 0, jax.tree.map(np.asarray, state))
+    if d is not None:
+        ckpt.save(str(d), 0, jax.tree.map(np.asarray, state))
+    if perturb:
+        r = np.random.default_rng(perturb)
+        state = dataclasses.replace(state, params=jax.tree.map(lambda a: jnp.asarray(
+            (np.asarray(a) * (1 + eps * r.standard_normal(a.shape))).astype(np.float32)),
+            state.params))
     data = make_pipeline(DataConfig(vocab_size=cfg.vocab_size, global_batch=batch,
                                     seq_len=seq))
     opt = AdamWConfig(lr_peak=3e-3, lr_min=3e-4, warmup_steps=20, total_steps=steps)
@@ -229,6 +241,7 @@ def test_train_e2e_matches_reference_and_resumes(tmp_path):
     opt = AdamWConfig(lr_peak=3e-3, lr_min=3e-4, warmup_steps=20, total_steps=3)
     for s, (m, w) in enumerate(zip(whole["metrics"], want)):
         np.testing.assert_allclose(m["loss"], w["loss"], rtol=STEP_BARS["float32"][0])
+        np.testing.assert_allclose(m["grad_norm"], w["grad_norm"], rtol=STEP_BARS["float32"][4])
         # The step reports the rate of its update, step s + 1 of the schedule.
         assert np.float32(m["lr"]) == np.float32(cosine_schedule(opt, np.int32(s + 1)))
     first, resumed = runs["cut"]
@@ -264,3 +277,30 @@ def test_twin_without_a_card_raises(twin):
         pytest.skip("this machine has a CUDA card: the twin runs on it")
     with pytest.raises(RuntimeError, match="CUDA"):
         _load(f"examples/{twin}.py").main([])
+
+
+def _grad_norm_gaps(tmp: Path, seeds=(1, 2, 3)) -> dict:
+    """The train_e2e twin's grad norms against the reference's at
+    ``TRAIN_ARGS``'s width, 3 steps: the port's gap and the reference's own
+    spread (its runs from the weights scaled by (1 + 1e-7 N(0, 1)) against
+    its run from the weights), each the largest relative gap over the
+    steps."""
+    want = _jax_train(3, tmp / "init")
+    shutil.copytree(tmp / "init", tmp / "run")
+    got = _load("examples/torch_train_e2e.py").main(
+        TRAIN_ARGS + ["--ckpt-dir", str(tmp / "run"), "--steps", "3"])
+
+    def gap(a, b):
+        return max(abs(x["grad_norm"] - y["grad_norm"]) / abs(y["grad_norm"])
+                   for x, y in zip(a, b))
+
+    return {"port": gap(got["metrics"], want),
+            "reference_spread": max(gap(_jax_train(3, None, seed), want) for seed in seeds)}
+
+
+if __name__ == "__main__":
+    import tempfile
+
+    torch.set_num_threads(1)
+    with tempfile.TemporaryDirectory() as d:
+        print(_grad_norm_gaps(Path(d)))

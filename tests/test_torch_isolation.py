@@ -25,7 +25,7 @@ def test_import_loads_neither_jax_nor_reference_package():
         import repro_torch.models, repro_torch.models.lm, repro_torch.configs
         import repro_torch.models.moe, repro_torch.models.ssm
         import repro_torch.runtime.steps, repro_torch.launch.serve
-        import repro_torch.kernels.attention
+        import repro_torch.kernels.attention, repro_torch.kernels.stage2
         import repro_torch.distribution.plan
         import repro_torch.models.flash, repro_torch.optim.adamw, repro_torch.optim.grad
         import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt
