@@ -23,10 +23,13 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      host-to-device copy, launch-to-sync and copy back; the stage-2 kernel
      (``fleet_evaluate``) takes phase 2's fleet at the offline (16 x 8,192
      rows) and serving (8 x 512) shapes, plain, under a topology and
-     wired-only (n_chan 1), against ``ref_fleet_evaluate`` with
-     ``torch.equal``, timed by CUDA events and in a CUDA graph beside the
-     plain version and its bound, and one launch as the engine makes it is
-     split as stage 1's is, with the device's busy share of that span;
+     wired-only (n_chan 1), as the engine gives it (int16 rows through
+     the pinned staging buffer, the packed tables), against
+     ``ref_fleet_evaluate`` with ``torch.equal``, timed by CUDA events and
+     in a CUDA graph beside the plain version and its bound, with its
+     launch (rows a block, blocks, SMs covered); one launch as the engine
+     makes it is split as stage 1's is and timed whole, with the
+     device's busy share of that span;
   2. solves the stress lane's 16-job production fleet offline with
      ``schedule_fleet`` at the engine defaults, with and without a
      restricted topology (wall, stage-1 and stage-2 ms a launch, peak
@@ -584,34 +587,36 @@ def stage1_inputs(np, torch, instances, rows: int, seed: int):
 
 def stage2_inputs(np, torch, instances, rows: int, seed: int, use_wireless: bool = True):
     """The engine's stage-2 inputs for ``rows`` random candidates of each
-    instance (as ``_run_fleet.launch_stage2`` packs them: int32 racks and
-    instance ids on the host, padded tasks on rack 0) and the fleet's op
-    tables on the card."""
+    instance, as ``_run_fleet.launch_stage2`` writes them (``_Stage2Rows``:
+    int16 racks and int32 instance ids in pinned host buffers, padded
+    tasks on rack 0), the fleet's 12 op tables on the card (the plain
+    version's) and their packed form (the kernel's, ``_stage2_tables``)."""
     from repro_torch.core.simulator import build_op_tables
-    from repro_torch.core.vectorized import _build_eval_stack, _fleet_dims
+    from repro_torch.core.vectorized import (
+        _build_eval_stack, _fleet_dims, _Stage2Rows, _stage2_tables,
+    )
 
+    dev = torch.device("cuda")
     ops = [build_op_tables(inst) for inst in instances]
     dims = _fleet_dims(instances, use_wireless, ops)
-    tables = _build_eval_stack(instances, dims, use_wireless, torch.device("cuda"), ops)
+    tables = _build_eval_stack(instances, dims, use_wireless, dev, ops)
+    (packed,), = _stage2_tables(_build_eval_stack(instances, dims, use_wireless, "cpu", ops),
+                                [dev])
     rng = np.random.default_rng(seed)
-    B = len(instances) * rows
-    rack = np.zeros((B, dims.n_pad), np.int32)
-    iid = np.zeros(B, np.int32)
-    for i, inst in enumerate(instances):
-        n = inst.job.n_tasks
-        rack[i * rows:(i + 1) * rows, :n] = rng.integers(0, inst.n_racks, (rows, n))
-        iid[i * rows:(i + 1) * rows] = i
-    return rack, iid, tables, dims
+    staging = _Stage2Rows(len(instances) * rows, dims.n_pad, dev)
+    staging.fill([(i * rows, rng.integers(0, inst.n_racks, (rows, inst.job.n_tasks)),
+                   inst.job.n_tasks, i) for i, inst in enumerate(instances)], dims.n_pad)
+    return staging, tables, packed, dims
 
 
-def stage2_bound(np, instances, rack, iid, tables, dims) -> tuple[float, str]:
-    """Least ms of one stage-2 launch on these rows: the racks and instance
-    ids (int32) and the op tables read once, a float a row written once;
-    operations are the float32 ones these rows' walks need: per task its
-    in-edges' maxes with the rack's and one add, per co-located edge one
-    add, per cross-rack edge a reach product, a max, an add and a compare a
-    channel, and the makespan's n_pad - 1 maxes."""
-    nbytes = rack.nbytes + iid.nbytes + sum(t.numel() * t.element_size() for t in tables)
+def stage2_bound(np, instances, rack, iid, packed, dims) -> tuple[float, str]:
+    """Least ms of one stage-2 launch on these rows: the racks (int16) and
+    instance ids (int32) and the packed tables read once, a float a row
+    written once; operations are the float32 ones these rows' walks need:
+    per task its in-edges' maxes with the rack's and one add, per
+    co-located edge one add, per cross-rack edge a reach product, a max,
+    an add and a compare a channel, and the makespan's n_pad - 1 maxes."""
+    nbytes = rack.nbytes + iid.nbytes + packed.blob.numel() * packed.blob.element_size()
     nbytes += 4 * rack.shape[0]
     ops = 0
     for i, inst in enumerate(instances):
@@ -624,6 +629,126 @@ def stage2_bound(np, instances, rack, iid, tables, dims) -> tuple[float, str]:
             cross = int((rows[:, job.edges[:, 0]] != rows[:, job.edges[:, 1]]).sum())
             ops += cross * 4 * dims.n_chan + len(rows) * job.n_edges - cross
     return _larger(nbytes, ops, F32_OPS_PER_S)
+
+
+def scheduler_fleets(np):
+    """Phase 2's offline fleet (16 production jobs on 8 racks and 2
+    subchannels) and the same jobs under a random ``Topology``."""
+    from repro_torch.core.instance import Topology
+    from repro_torch.online import production_arrivals
+
+    evs = production_arrivals(0, rate=1 / 60, n_jobs=16, n_racks=8, n_wireless=2)
+    insts = [e.inst for e in evs]
+    topo_rng = np.random.default_rng(1)
+    topo_insts = [
+        dataclasses.replace(
+            inst,
+            topology=Topology(
+                reach=topo_rng.random((inst.n_racks, inst.n_wireless)) < 0.5
+            ),
+        )
+        for inst in insts
+    ]
+    return insts, topo_insts
+
+
+def stage2_phase(np, torch, insts, topo_insts) -> tuple[dict, float]:
+    """Phase 1's stage-2 block: ``fleet_evaluate`` on phase 2's fleets at
+    the offline and serving shapes, plain, under a topology and wired-only,
+    on the engine's inputs against ``ref_fleet_evaluate`` (``torch.equal``),
+    timed beside the plain version and its bound, with its launch and one
+    engine launch's host split. Returns the offline plain arm's kernel-table
+    row and the largest error."""
+    from repro_torch.core.vectorized import _stage2_split
+    from repro_torch.kernels import ref, stage2
+
+    dev = torch.device("cuda")
+    max_err, row = 0.0, None
+    name = "fleet_evaluate"
+    for label, rows, n_inst in (("offline", 8192, 16), ("serving", 512, 8)):
+        for arm, fleet_insts, wireless in (("plain", insts, True), ("topology", topo_insts, True),
+                                           ("wired_only", insts, False)):
+            sub = fleet_insts[:n_inst]
+            staging, tables, packed, dims = stage2_inputs(np, torch, sub, rows, 3, wireless)
+            r16 = staging.rack.to(dev, non_blocking=True)
+            i32 = staging.iid.to(dev, non_blocking=True)
+            check(r16.dtype == torch.int16 and staging.rack.is_pinned(),
+                  "stage 2's rows are not int16 from pinned memory")
+            B = r16.shape[0]
+            kw = dict(m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan)
+            kern = lambda: stage2.fleet_evaluate(r16, i32, packed, **kw)  # noqa: E731
+            plain = lambda: ref.ref_fleet_evaluate(r16, i32, *tables, **kw)  # noqa: E731
+            before = stage2.launches[name]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            check(stage2.launches[name] == before + 1, f"{name}: not one launch a call")
+            err = float((got - want).abs().max().item())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want), f"{name} != plain at {label} {arm} (err {err})")
+            check(bool(torch.isfinite(got).all()), f"{name}: a makespan is not finite")
+            plan = stage2.launch_plan(B, dims.n_pad, dims.m_pad, packed)
+            ms = cuda_ms(torch, kern)
+            dev_ms = graph_ms(torch, kern)
+            plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+            b_ms, b_by = stage2_bound(np, sub, staging.rack_np, staging.iid_np, packed, dims)
+            # One stage-2 launch as _run_fleet makes it: the pinned rows'
+            # copy in, launch to sync, the makespans' copy back into pinned
+            # memory; then the same unsynced, as the engine queues it
+            # (_stage2_split, then _Stage2Rows.read). The device's busy
+            # share is the kernel's device time over that span.
+            split, whole = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rd = staging.rack.to(dev, non_blocking=True)
+                idd = staging.iid.to(dev, non_blocking=True)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = stage2.fleet_evaluate(rd, idd, packed, **kw)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                vals = staging.read([out])
+                t3 = time.perf_counter()
+                split.append((t1 - t0, t2 - t1, t3 - t2))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vals2 = staging.read(_stage2_split(staging.rack, staging.iid, [(packed,)],
+                                                   [dev], dims))
+                whole.append(time.perf_counter() - t0)
+            check(np.array_equal(vals2, want.cpu().numpy()) and np.array_equal(vals, vals2),
+                  f"{name}: the engine's launch != plain at {label} {arm}")
+            h2d, run, d2h = (1e3 * float(np.median(c)) for c in zip(*split))
+            engine_ms = 1e3 * float(np.median(whole))
+            emit("kernel", name=name, shape=label, arm=arm, B=B, n=dims.n_pad, m=dims.m_pad,
+                 M=dims.M_pad, n_ops=dims.n_ops, n_chan=dims.n_chan, ms=ms, device_ms=dev_ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                 ns_per_op_row=1e6 * dev_ms / dims.n_ops,
+                 host_us_per_call=host_us(torch, kern), launch=plan,
+                 sms_covered=min(plan["blocks"], plan["sms"]))
+            emit("stage2_host_split", shape=label, arm=arm, B=B, h2d_ms=h2d,
+                 launch_to_sync_ms=run, d2h_ms=d2h, total_ms=h2d + run + d2h,
+                 engine_launch_ms=engine_ms,
+                 h2d_bytes=staging.rack.nbytes + staging.iid.nbytes, pinned=True,
+                 busy_share=dev_ms / engine_ms)
+            if label == "offline" and arm == "plain":
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            if arm == "plain":
+                # Where the device time goes: the same launch with every
+                # walk cut to 0 steps (each blob's n_live word, the first of
+                # its tail), so what is left is the launch and the block's
+                # set-up; the rest over the longest walk is a step's time.
+                live = packed.blob[:, dims.n_ops * 4 * stage2.record_quads(dims.indeg_pad)]
+                longest = int(live.max())
+                cut = dataclasses.replace(packed, blob=packed.blob.clone())
+                cut.blob[:, dims.n_ops * 4 * stage2.record_quads(dims.indeg_pad)] = 0
+                fixed_ms = graph_ms(torch, lambda: stage2.fleet_evaluate(r16, i32, cut, **kw))
+                emit("stage2_steps", shape=label, device_ms=dev_ms, zero_step_ms=fixed_ms,
+                     longest_walk=longest, mean_walk=float(live.float().mean()),
+                     ns_per_step=1e6 * (dev_ms - fixed_ms) / longest)
+                del cut
+            del r16, i32, tables, packed, got, want, staging
+    torch.cuda.empty_cache()
+    return row, max_err
 
 
 def scheduler_launches() -> dict:
@@ -823,18 +948,19 @@ def library_ms(torch, fn):
 
 def stage2_bound_ms(torch, instances, batch_size: int) -> float:
     """Least ms of one stage-2 launch by bytes: the candidate block
-    (int32 [B, n_pad], as ``_rows_to_device`` copies it to the card) and
-    row instance ids (int32 [B]) read once, the op tables of
-    ``_build_eval_stack`` read once, the makespans (f32 [B]) written
-    once."""
+    (int16 [B, n_pad], as ``_Stage2Rows`` copies it to the card) and row
+    instance ids (int32 [B]) read once, the packed op tables of
+    ``_stage2_tables`` read once, the makespans (f32 [B]) written once."""
     from repro_torch.core.simulator import build_op_tables
-    from repro_torch.core.vectorized import _build_eval_stack, _fleet_dims
+    from repro_torch.core.vectorized import _fleet_dims
+    from repro_torch.kernels.stage2 import packed_words
 
     tables = [build_op_tables(inst) for inst in instances]
     dims = _fleet_dims(instances, True, tables)
-    stack = _build_eval_stack(instances, dims, True, torch.device("cpu"), tables)
+    blob = 4 * len(instances) * packed_words(dims.n_ops, dims.indeg_pad, dims.M_pad,
+                                             dims.n_chan)
     B = len(instances) * batch_size
-    nbytes = B * dims.n_pad * 4 + B * 4 + sum(t.nbytes for t in stack) + B * 4
+    nbytes = B * dims.n_pad * 2 + B * 4 + blob + B * 4
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -2980,18 +3106,7 @@ def main() -> int:
               f"flash_attention_bwd.cu spills in {f['kernel']}")
 
     # The offline fleet of phases 1 (stage-1 inputs) and 2.
-    evs = production_arrivals(0, rate=1 / 60, n_jobs=16, n_racks=8, n_wireless=2)
-    insts = [e.inst for e in evs]
-    topo_rng = np.random.default_rng(1)
-    topo_insts = [
-        dataclasses.replace(
-            inst,
-            topology=Topology(
-                reach=topo_rng.random((inst.n_racks, inst.n_wireless)) < 0.5
-            ),
-        )
-        for inst in insts
-    ]
+    insts, topo_insts = scheduler_fleets(np)
 
     # -- 1. kernels against their plain versions ------------------------------
     rng = np.random.default_rng(0)
@@ -3130,58 +3245,8 @@ def main() -> int:
             del r32, i32, tables, got, want
     torch.cuda.empty_cache()
 
-    # Stage 2 (fleet_evaluate) on phase 2's fleet at the offline and serving
-    # shapes: plain, under a topology, and wired-only (n_chan 1).
-    name = "fleet_evaluate"
-    for label, rows, n_inst in (("offline", 8192, 16), ("serving", 512, 8)):
-        for arm, fleet_insts, wireless in (("plain", insts, True), ("topology", topo_insts, True),
-                                           ("wired_only", insts, False)):
-            sub = fleet_insts[:n_inst]
-            rack, iid, tables, dims = stage2_inputs(np, torch, sub, rows, 3, wireless)
-            r32, i32 = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
-            B = rack.shape[0]
-            kw = dict(m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan)
-            kern = lambda: stage2.fleet_evaluate(r32, i32, *tables, **kw)  # noqa: E731
-            plain = lambda: ref.ref_fleet_evaluate(r32, i32, *tables, **kw)  # noqa: E731
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max().item())
-            max_err[name] = max(max_err[name], err)
-            check(torch.equal(got, want), f"{name} != plain at {label} {arm} (err {err})")
-            check(bool(torch.isfinite(got).all()), f"{name}: a makespan is not finite")
-            ms = cuda_ms(torch, kern)
-            dev_ms = graph_ms(torch, kern)
-            plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
-            b_ms, b_by = stage2_bound(np, sub, rack, iid, tables, dims)
-            # One stage-2 launch as _stage2_split makes it: copy the rows in,
-            # launch and sync, copy the makespans back; the device's busy
-            # share of that span is the kernel's device time over it.
-            split = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                rd, idd = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                out = stage2.fleet_evaluate(rd, idd, *tables, **kw)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                out.cpu().numpy()
-                t3 = time.perf_counter()
-                split.append((t1 - t0, t2 - t1, t3 - t2))
-            h2d, run, d2h = (1e3 * float(np.median(c)) for c in zip(*split))
-            emit("kernel", name=name, shape=label, arm=arm, B=B, n=dims.n_pad, m=dims.m_pad,
-                 M=dims.M_pad, n_ops=dims.n_ops, n_chan=dims.n_chan, ms=ms, device_ms=dev_ms,
-                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                 host_us_per_call=host_us(torch, kern))
-            emit("stage2_host_split", shape=label, arm=arm, B=B, h2d_ms=h2d,
-                 launch_to_sync_ms=run, d2h_ms=d2h, total_ms=h2d + run + d2h,
-                 h2d_bytes=rack.nbytes + iid.nbytes,
-                 busy_share=dev_ms / (h2d + run + d2h))
-            if label == "offline" and arm == "plain":
-                table[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-            del r32, i32, tables, got, want
-    torch.cuda.empty_cache()
+    table["fleet_evaluate"], max_err["fleet_evaluate"] = stage2_phase(
+        np, torch, insts, topo_insts)
 
     # -- main path: every count to 0 just before, read just after -------------
     reset_scheduler_launches()

@@ -30,9 +30,10 @@ masks) and solved by one pair of device programs per size bucket.
   row by instance id, so candidates of **different** jobs ride in the
   same launch. On a card it is one launch of the hand-written CUDA kernel
   :func:`repro_torch.kernels.stage2.fleet_evaluate` per card, one thread a
-  row walking its table with its state in shared memory; on the CPU its
-  plain version is a PyTorch loop, one step of gathers and scatters per
-  op-table row.
+  row walking its instance's packed op records from shared memory with
+  its state there too, the rows copied in as int16 from a pinned host
+  buffer; on the CPU its plain version is a PyTorch loop, one step of
+  gathers and scatters per op-table row.
 
 Every device operation is an add, a max, a compare, an argmin or one
 division in a fixed order, so scores, bounds and hence the whole search
@@ -209,26 +210,19 @@ def _bucket_key(device, tensors, statics) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _scan_evaluate(
-    rack,       # int64[B, n_pad]  candidate assignments (one job's tasks per row;
-                #                  int32 on a CUDA device: _rows_to_device)
-    inst_id,    # int64[B]         which fleet instance each row belongs to (rack's dtype)
-    kind,       # int64[I, n_ops]  OP_TASK / OP_EDGE / OP_PAD
-    op_task,    # int64[I, n_ops]  task id for OP_TASK rows (0 otherwise)
-    op_edge,    # int64[I, n_ops]  edge id for OP_EDGE rows (0 otherwise)
-    op_src,     # int64[I, n_ops]  edge source task (0 otherwise)
-    op_dst,     # int64[I, n_ops]  edge dest task (0 otherwise)
-    op_p,       # f32[I, n_ops]    task duration
-    op_wired,   # f32[I, n_ops]    wired transfer duration
-    op_wireless,  # f32[I, n_ops]  wireless transfer duration
-    op_local,   # f32[I, n_ops]    local transfer delay
-    op_in,      # int64[I, n_ops, indeg_pad] in-edge ids gating a task row;
-                #                  the sentinel id m_pad always reads 0.0
-    chan_free0,  # f32[I, n_chan]  initial channel availability: 0 = usable,
-                #                  +inf = masked (instance has fewer channels)
-    reach,      # f32[I, M_pad, n_chan] topology reachability: 1 = rack may
-                #                  use the channel (col 0, wired, always 1);
-                #                  all-ones when the instance has no topology
-    *,
+    rack,       # int16[B, n_pad]  candidate assignments (one job's tasks per row;
+                #                  the engine's rows: _Stage2Rows; int32 / int64 on the CPU)
+    inst_id,    # int32[B]         which fleet instance each row belongs to
+    *tables,    # the 12 tables below (the plain version's) or their
+                # kstage2.PackedTables (the engine's, made once a fleet):
+                # kind,       int64[I, n_ops]  OP_TASK / OP_EDGE / OP_PAD
+                # op_task, op_edge, op_src, op_dst: int64[I, n_ops] ids (0 off their kind)
+                # op_p, op_wired, op_wireless, op_local: f32[I, n_ops] durations
+                # op_in,      int64[I, n_ops, indeg_pad] in-edge ids gating a task
+                #             row; the sentinel id m_pad always reads 0.0
+                # chan_free0, f32[I, n_chan] 0 = usable, +inf = masked channel
+                # reach,      f32[I, M_pad, n_chan] topology reachability: 1 = rack
+                #             may use the channel (col 0, wired, always 1)
     m_pad: int,
     M_pad: int,
     n_chan: int,
@@ -239,15 +233,17 @@ def _scan_evaluate(
     its plain version :func:`repro_torch.kernels.ref.ref_fleet_evaluate`
     walks the tables one step of PyTorch ops per op-table row."""
     global TRACE_COUNT
-    key = _bucket_key(rack.device, (rack, kind, op_in, reach), (m_pad, M_pad, n_chan))
+    if len(tables) == 1:
+        pk = tables[0]
+        shapes, statics = (rack, pk.blob), (pk.n_ops, pk.indeg_pad)
+    else:
+        shapes, statics = (rack, tables[0], tables[9], tables[11]), ()
+    key = _bucket_key(rack.device, shapes, statics + (m_pad, M_pad, n_chan))
     if key not in _seen_stage2:
         _seen_stage2.add(key)
         TRACE_COUNT += 1
-    return kstage2.fleet_evaluate(
-        rack, inst_id, kind, op_task, op_edge, op_src, op_dst, op_p, op_wired,
-        op_wireless, op_local, op_in, chan_free0, reach,
-        m_pad=m_pad, M_pad=M_pad, n_chan=n_chan,
-    )
+    return kstage2.fleet_evaluate(rack, inst_id, *tables, m_pad=m_pad, M_pad=M_pad,
+                                  n_chan=n_chan)
 
 
 def _build_eval_stack(instances, dims: _FleetDims, use_wireless: bool, device, op_tables=None):
@@ -297,9 +293,10 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _rows_to_device(a: np.ndarray, device) -> torch.Tensor:
-    """Stage-1 and stage-2 racks / instance ids -> device: int32 as they
-    are on a CUDA device (the kernels read them so, half the copy's bytes),
-    int64 indices on the CPU (the plain versions gather with them)."""
+    """Stage-1 racks / instance ids -> device: int32 as they are on a CUDA
+    device (the kernel reads them so, half the copy's bytes), int64
+    indices on the CPU (the plain version gathers with them). Stage 2's
+    rows go through :class:`_Stage2Rows`."""
     if torch.device(device).type == "cuda":
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
     return _to_device(a, device)
@@ -322,23 +319,90 @@ def _stage2_devices(device: torch.device) -> list[torch.device]:
 
 
 def _stage2_tables(tables: tuple, devs: list) -> list[tuple]:
-    """The op tables on each of ``devs`` (replicated, as the reference's
-    ``shard_map`` replicates them; the first device's are ``tables``)."""
-    return [tables] + [tuple(t.to(d) for t in tables) for d in devs[1:]]
+    """The op tables of ``_build_eval_stack`` packed once a fleet
+    (:func:`repro_torch.kernels.stage2.pack_tables`, on the tables' device)
+    and placed on each of ``devs`` (replicated, as the reference's
+    ``shard_map`` replicates them): one ``(PackedTables,)`` a device."""
+    packed = kstage2.pack_tables(*tables)
+    return [(packed.to(d),) for d in devs]
 
 
-def _stage2_split(rack: np.ndarray, iid: np.ndarray, tables_on: list, devs: list,
+class _Stage2Rows:
+    """Host buffers of stage 2's rows, written in place every launch:
+    int16 racks [B, n_pad] (every rack id fits: the kernel's state limit
+    caps M_pad at 32,768) and int32 instance ids [B], and the float32
+    scores read back. For a CUDA device they are allocated pinned, once,
+    so each card's slice goes with ``non_blocking=True``; on the CPU they
+    are plain host memory (pinning needs CUDA)."""
+
+    def __init__(self, B: int, n_pad: int, device: torch.device):
+        pin = device.type == "cuda"
+        self.rack = torch.zeros((B, n_pad), dtype=torch.int16, pin_memory=pin)
+        self.iid = torch.zeros(B, dtype=torch.int32, pin_memory=pin)
+        self.out = torch.empty(B, dtype=torch.float32, pin_memory=pin)
+        self.rack_np, self.iid_np, self.out_np = (
+            self.rack.numpy(), self.iid.numpy(), self.out.numpy())
+        self.pinned = pin
+        self._copied: list = []  # events after the last copies out of the buffers
+
+    def fill(self, blocks, n_pad: int) -> None:
+        """Rows ``[lo, lo + len(block))`` of instance ``idx`` for each
+        ``(lo, block, n, idx)``, tasks past ``n`` on rack 0; every other
+        row all on rack 0 of instance 0."""
+        rack, iid = self.rack_np, self.iid_np
+        end = 0
+        for lo, block, n, idx in blocks:
+            hi = lo + block.shape[0]
+            rack[end:lo] = 0
+            iid[end:lo] = 0
+            rack[lo:hi, :n] = block
+            rack[lo:hi, n:n_pad] = 0
+            iid[lo:hi] = idx
+            end = hi
+        rack[end:] = 0
+        iid[end:] = 0
+
+    def mark(self, devs: list) -> None:
+        """Record, on each card's current stream, that the launch's copies
+        out of the buffers are queued (what :meth:`wait` waits for)."""
+        if self.pinned:
+            self._copied = [torch.cuda.current_stream(d).record_event() for d in devs]
+
+    def wait(self) -> None:
+        for ev in self._copied:
+            ev.synchronize()
+        self._copied = []
+
+    def read(self, parts: list[torch.Tensor]) -> np.ndarray:
+        """The scores of one launch's chunks, in order, on the host: into
+        the pinned buffer (each card's copy queued, then each card waited
+        for), or concatenated on the CPU."""
+        if not self.pinned:
+            return np.concatenate([p.numpy() for p in parts])
+        lo = 0
+        for p in parts:
+            self.out[lo:lo + p.shape[0]].copy_(p, non_blocking=True)
+            lo += p.shape[0]
+        for p in parts:
+            torch.cuda.current_stream(p.device).synchronize()
+        return self.out_np[:lo]
+
+
+def _stage2_split(rack: torch.Tensor, iid: torch.Tensor, tables_on: list, devs: list,
                   dims: "_FleetDims") -> list[torch.Tensor]:
     """Stage 2 over ``len(devs)`` equal row chunks in order, chunk i on
-    ``devs[i]``; every chunk is launched before any is read. Each row is
-    scored on its own, so the chunks' scores concatenated are the one-chunk
-    scores bit for bit. (Each card's program counts as its own size bucket
-    in ``TRACE_COUNT``.)"""
+    ``devs[i]``; every chunk is launched before any is read. ``rack``
+    (int16) and ``iid`` (int32) are host tensors, pinned for a card
+    (:class:`_Stage2Rows`): each chunk is copied with
+    ``non_blocking=True`` (on the CPU it is a view). Each row is scored on
+    its own, so the chunks' scores concatenated are the one-chunk scores
+    bit for bit. (Each card's program counts as its own size bucket in
+    ``TRACE_COUNT``.)"""
     per = rack.shape[0] // len(devs)
     return [
         _scan_evaluate(
-            _rows_to_device(rack[i * per:(i + 1) * per], d),
-            _rows_to_device(iid[i * per:(i + 1) * per], d),
+            rack[i * per:(i + 1) * per].to(d, non_blocking=True),
+            iid[i * per:(i + 1) * per].to(d, non_blocking=True),
             *tables_on[i], m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan,
         )
         for i, d in enumerate(devs)
@@ -359,17 +423,23 @@ def make_batched_evaluator(inst: ProblemInstance, use_wireless: bool = True, dev
     dims = _fleet_dims([inst], use_wireless, ops)
     devs = _stage2_devices(dev)
     n_dev = len(devs)
-    tables_on = _stage2_tables(_build_eval_stack([inst], dims, use_wireless, dev, ops), devs)
+    tables_on = _stage2_tables(_build_eval_stack([inst], dims, use_wireless, "cpu", ops), devs)
     n = inst.job.n_tasks
+    rows = None  # _Stage2Rows, grown to the largest padded batch seen
 
     def evaluate(rack) -> torch.Tensor:
-        rack = np.asarray(rack, dtype=np.int32)
+        nonlocal rows
+        rack = np.asarray(rack)
         B = rack.shape[0]
         B_pad = _bucket(B) * (n_dev if _bucket(B) % n_dev else 1)
-        padded = np.zeros((B_pad, dims.n_pad), dtype=np.int32)
-        padded[:B, :n] = rack
-        inst_id = np.zeros(B_pad, dtype=np.int32)
-        parts = _stage2_split(padded, inst_id, tables_on, devs, dims)
+        if rows is None or rows.rack.shape[0] < B_pad:
+            rows = _Stage2Rows(B_pad, dims.n_pad, dev)
+        # The scores stay on the card unread, so the buffers are reused only
+        # once the previous call's copies out of them have run.
+        rows.wait()
+        rows.fill([(0, rack, n, 0)], dims.n_pad)
+        parts = _stage2_split(rows.rack[:B_pad], rows.iid[:B_pad], tables_on, devs, dims)
+        rows.mark(devs)
         return torch.cat([p.to(dev) for p in parts])[:B]
 
     evaluate.dims = dims
@@ -845,7 +915,7 @@ def _run_fleet(
     devs = _stage2_devices(dev)
     n_dev = len(devs)
     eval_tables = _stage2_tables(
-        _build_eval_stack(instances, dims, use_wireless, dev, op_tables), devs)
+        _build_eval_stack(instances, dims, use_wireless, "cpu", op_tables), devs)
     lb_args = _build_lb_arrays(instances, dims, dev) if use_kernel else None
     t2_0, t1_0 = TRACE_COUNT, LB_TRACE_COUNT
     launches = [0, 0]  # [stage1, stage2]
@@ -856,6 +926,7 @@ def _run_fleet(
     B2 = I * batch_size
     if B2 % n_dev:
         B2 += n_dev - B2 % n_dev
+    rows2 = _Stage2Rows(B2, dims.n_pad, dev)
 
     # Patience default: stop at the first non-improving round (the
     # pre-portfolio rule) for a single strategy; give multi-strategy
@@ -886,15 +957,15 @@ def _run_fleet(
         # solo flow.
         for g0 in range(0, len(blocks), I):
             group = blocks[g0 : g0 + I]
-            rack = np.zeros((B2, dims.n_pad), dtype=np.int32)
-            iid = np.zeros(B2, dtype=np.int32)
-            for s, (st, blk, _tb, _tg) in enumerate(group):
-                lo = s * batch_size
-                rack[lo : lo + batch_size, : st.n] = blk
-                iid[lo : lo + batch_size] = st.idx
+            # rows2's buffers are reused launch after launch: the read of the
+            # scores below waits for every card, so the copies out of them
+            # (and into the scores buffer, which apply_scores has read) are
+            # done before they are written again.
+            rows2.fill([(s * batch_size, blk, st.n, st.idx)
+                        for s, (st, blk, _tb, _tg) in enumerate(group)], dims.n_pad)
             with tr.span("stage2_launch", rows=B2):
-                parts = _stage2_split(rack, iid, eval_tables, devs, dims)
-                vals = np.concatenate([p.cpu().numpy() for p in parts])
+                parts = _stage2_split(rows2.rack, rows2.iid, eval_tables, devs, dims)
+                vals = rows2.read(parts)
             launches[1] += 1
             for s, (st, blk, tb, tg) in enumerate(group):
                 lo = s * batch_size

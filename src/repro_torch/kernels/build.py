@@ -82,10 +82,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_bwd_smem_bytes": [_i32, _i32, _i32],
     },
     "stage2": {
-        # rack, inst_id, kind, op_task, op_edge, op_src, op_dst, op_p,
-        # op_wired, op_wireless, op_local, op_in, chan_free0, reach, out, B,
-        # n_pad, n_ops, m_pad, M_pad, indeg_pad, n_chan, stream
-        "fleet_evaluate": [*[_ptr] * 15, *[_i32] * 7, _ptr],
+        # rack (int16), inst_id, packed, out, B, n_pad, n_ops, m_pad, M_pad,
+        # indeg_pad, n_chan, stream
+        "fleet_evaluate": [*[_ptr] * 4, *[_i32] * 7, _ptr],
+        # B, n_pad, n_ops, m_pad, M_pad, indeg_pad, n_chan, out[5] -> the
+        # launch's rows a block, blocks, staged blob, shared bytes, SMs
+        "fleet_evaluate_plan": [*[_i32] * 7, _ptr],
     },
     "decode_attention": {
         # dtype, q, k, v, kv_len (or null), kv_len_all, out, part,

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads through
-// rank-4 tensor maps, wgmma with shared-memory descriptors, and the host
-// lookups a launch needs. Each .cu that includes this header is its own
+// (flash_attention.cu, flash_attention_bwd.cu) and stage 2 (stage2.cu):
+// mbarriers, TMA loads through rank-4 tensor maps and 1-D bulk copies, wgmma
+// with shared-memory descriptors, and the host lookups a launch needs. Each .cu that includes this header is its own
 // library, so nothing here needs external linkage.
 
 #pragma once
@@ -51,6 +51,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// Make a thread's mbarrier.init visible to the async proxy (the bulk copies
+// that complete on it) and to the block after the next barrier.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Retire an mbarrier before its shared memory is used for anything else.
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
@@ -84,6 +95,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// 1-D bulk copy (TMA without a tensor map) of `bytes` from global memory to
+// shared memory, completing on `bar`: both addresses and `bytes` multiples
+// of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
