@@ -18,9 +18,15 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      shape, the serving shape and ragged shapes, and times both with CUDA
      events (and the cpm kernels at the offline shape on the device alone,
      in a CUDA graph); the fused stage-1 kernels (``fleet_lb``,
-     ``fleet_lb_masked``) take the stage-1 inputs of phase 2's fleet, and
-     one stage-1 launch as the engine makes it is split into its
-     host-to-device copy, launch-to-sync and copy back; the stage-2 kernel
+     ``fleet_lb_masked``) take the stage-1 inputs of phase 2's fleet at
+     the offline and serving shapes as the engine gives them (int16 rows
+     through the pinned row buffer, the packed tables), with and without
+     contention, at 0 rounds and with two instances in every block, each
+     with its launch (rows a block, blocks, SMs covered, staged blob,
+     registers) and both bounds (its own bytes, and the int32 rows and
+     unpacked tables it read before), and one stage-1 launch as the engine makes it is
+     split into its pinned host-to-device copy, launch-to-sync and pinned
+     copy back, and timed whole; the stage-2 kernel
      (``fleet_evaluate``) takes phase 2's fleet at the offline (16 x 8,192
      rows) and serving (8 x 512) shapes, plain, under a topology and
      wired-only (n_chan 1), as the engine gives it (int16 rows through
@@ -219,7 +225,7 @@ GOLDEN_FLEET_COUNTERS = dict(
 
 # The port's own kernels (csrc/*.cu), reported by name in every profile.
 PORT_KERNELS = ("cpm_lanes_kernel", "cpm_fleet_kernel", "cpm_rows_kernel",
-                "cpm_fleet_rows_kernel", "fleet_evaluate_kernel", "flash_fwd_",
+                "fleet_evaluate_kernel", "flash_fwd_",
                 "decode_split_kernel", "decode_combine_kernel", "flash_bwd_")
 
 SERVE_JOBS = 200
@@ -507,11 +513,11 @@ def lb_inputs(np, torch, rng, B: int, n: int):
     )
 
 
-def rounds_needed(torch, ref, w, n_iters: int, mask=None) -> int:
-    """Relaxation rounds these rows need, summed over the rows: a row's
-    rounds up to the first that changes no bit of its dist (that one
-    included, as it shows the fixed point), at most ``n_iters``. The
-    kernels stop a warp's rounds there; later rounds repeat it."""
+def rounds_needed(torch, ref, w, n_iters: int, mask=None, per_row: bool = False):
+    """Relaxation rounds these rows need, summed over the rows (or each
+    row's, ``per_row``): a row's rounds up to the first that changes no
+    bit of its dist (that one included, as it shows the fixed point), at
+    most ``n_iters``. The kernels stop there; later rounds repeat it."""
     w = w.float()
     w = torch.where(torch.isfinite(w), w, torch.full_like(w, ref.NEG_INF))
     if mask is not None:
@@ -526,7 +532,7 @@ def rounds_needed(torch, ref, w, n_iters: int, mask=None) -> int:
         need = torch.where(fixed & ~done, torch.full_like(need, k + 1), need)
         done |= fixed
         d = nd
-    return int(need.sum())
+    return need.cpu().numpy() if per_row else int(need.sum())
 
 
 def bound(B: int, n: int, rounds: int, kind: str) -> tuple[float, str]:
@@ -548,52 +554,76 @@ def bound(B: int, n: int, rounds: int, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fleet_bound(tensors, out_bytes: int, B: int, n: int, m: int, M: int,
-                rounds: int, masked: bool) -> tuple[float, str]:
-    """Least ms of one fused stage-1 launch: racks, instance ids and the
-    per-instance tables read once, lb written once; operations are the
-    float32 adds and maxes the bound needs: the relaxation rounds the rows
-    need and the epilogue as in :func:`bound`, the per-rack loads (one add
-    per task and rack, as the reference accumulates them), the work sum and
-    the two or three maxes and one division of the contention bound, and
-    under a topology one uplift add per edge cell, per edge and per forced
-    term."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors) + out_bytes
-    ops = 2 * rounds * n * n + B * (2 * n + 1 + n * M + m + 3)
-    if masked:
-        ops += B * 3 * m
-    return _larger(nbytes, ops, F32_OPS_PER_S)
+def fleet_bound(np, packed, dims, rack, iid, rounds, contention: bool = True
+                ) -> tuple[tuple[float, str], float]:
+    """Least ms of one fused stage-1 launch on these rows, and the same
+    launch's byte bound on the inputs the kernel read before it took
+    packed tables and int16 rows. Bytes: the int16 racks
+    and int32 instance ids read once, the kernel section of each
+    instance's packed blob (and, on the float-table route, its pair_ok)
+    read once, a float a row written once. Operations: the float32 adds
+    and maxes the kernel's walk needs on these rows: per round a row
+    needs (``rounds``: [B], up to its first round that changes no bit, at
+    most its DAG's depth, where the kernel stops),
+    an add and a max a real edge and two maxes a relaxation column; per
+    row a cell add and the work (and forced) adds a walked edge under a
+    topology, the work add without, a load add a task, a max a rack, the
+    division, the epilogue's add and max a column. The earlier bytes:
+    int32 racks and ids and the ten unpacked tables (int64 src and dst)."""
+    at = packed.layout
+    blob = packed.blob.cpu()
+    B = rack.shape[0]
+    used = np.unique(iid)
+    section = 4 * at["kernel_words"] + (4 * dims.M_pad ** 2 if packed.topo == 2 else 0)
+    nbytes = rack.nbytes + iid.nbytes + len(used) * section + 4 * B
+    head = blob[:, :5].numpy().astype(np.int64)
+    rounds = np.minimum(rounds, head[iid, 4])
+    real = (blob[:, at["rec"]:at["col_cnt"]].reshape(len(blob), -1, 4)[..., 0].numpy()
+            .astype(np.int64))
+    real = ((real & 0xFFFF) != ((real >> 16) & 0xFFFF)).sum(axis=1)
+    per_round = 2 * real + 2 * head[:, 0]
+    walked = head[:, 1] * (3 if packed.topo else 1) if contention else 0
+    per_row = (walked + head[:, 2] + dims.M_pad + 1 if contention else 0) + 2 * head[:, 0] + 1
+    ops = int((rounds * per_round[iid]).sum() + per_row[iid].sum())
+    t = _larger(nbytes, ops, F32_OPS_PER_S)
+    m, n, M, I = dims.m_pad, dims.n_pad, dims.M_pad, len(blob)
+    old = 4 * B * n + 4 * B + I * (16 * m + 16 * m + 4 * n + 4) + 4 * B
+    if packed.topo:
+        old += I * (4 * M * M + 4 * m)
+    return t, old / HBM_BYTES_PER_S * 1e3
 
 
 def stage1_inputs(np, torch, instances, rows: int, seed: int):
     """The engine's stage-1 inputs for ``rows`` random candidates of each
-    instance (as ``_run_fleet.launch_stage1`` packs them: int32 racks and
-    instance ids on the host, padded tasks on rack 0) and the fleet's
-    tables on the card."""
-    from repro_torch.core.vectorized import _build_lb_arrays, _fleet_dims
+    instance, as ``_run_fleet.launch_stage1`` writes them (``_FleetRows``:
+    int16 racks and int32 instance ids in pinned host buffers, padded
+    tasks on rack 0), the fleet's tables on the card (the plain version's)
+    and their packed form (the kernel's, ``_lb_tables``)."""
+    from repro_torch.core.vectorized import (
+        _build_lb_arrays, _fleet_dims, _FleetRows, _lb_tables,
+    )
 
+    dev = torch.device("cuda")
     dims = _fleet_dims(instances, use_wireless=True)
-    tables = _build_lb_arrays(instances, dims, torch.device("cuda"))
+    tables = _build_lb_arrays(instances, dims, dev)
+    (packed,) = _lb_tables(instances, dims, dev)
     rng = np.random.default_rng(seed)
-    B = len(instances) * rows
-    rack = np.zeros((B, dims.n_pad), np.int32)
-    iid = np.zeros(B, np.int32)
-    for i, inst in enumerate(instances):
-        n = inst.job.n_tasks
-        rack[i * rows:(i + 1) * rows, :n] = rng.integers(0, inst.n_racks, (rows, n))
-        iid[i * rows:(i + 1) * rows] = i
-    return rack, iid, tables, dims
+    staging = _FleetRows(len(instances) * rows, dims.n_pad, dev)
+    staging.fill([(i * rows, rng.integers(0, inst.n_racks, (rows, inst.job.n_tasks)),
+                   inst.job.n_tasks, i) for i, inst in enumerate(instances)], dims.n_pad,
+                 span=rows)
+    return staging, tables, packed, dims
 
 
 def stage2_inputs(np, torch, instances, rows: int, seed: int, use_wireless: bool = True):
     """The engine's stage-2 inputs for ``rows`` random candidates of each
-    instance, as ``_run_fleet.launch_stage2`` writes them (``_Stage2Rows``:
+    instance, as ``_run_fleet.launch_stage2`` writes them (``_FleetRows``:
     int16 racks and int32 instance ids in pinned host buffers, padded
     tasks on rack 0), the fleet's 12 op tables on the card (the plain
     version's) and their packed form (the kernel's, ``_stage2_tables``)."""
     from repro_torch.core.simulator import build_op_tables
     from repro_torch.core.vectorized import (
-        _build_eval_stack, _fleet_dims, _Stage2Rows, _stage2_tables,
+        _build_eval_stack, _fleet_dims, _FleetRows, _stage2_tables,
     )
 
     dev = torch.device("cuda")
@@ -603,7 +633,7 @@ def stage2_inputs(np, torch, instances, rows: int, seed: int, use_wireless: bool
     (packed,), = _stage2_tables(_build_eval_stack(instances, dims, use_wireless, "cpu", ops),
                                 [dev])
     rng = np.random.default_rng(seed)
-    staging = _Stage2Rows(len(instances) * rows, dims.n_pad, dev)
+    staging = _FleetRows(len(instances) * rows, dims.n_pad, dev)
     staging.fill([(i * rows, rng.integers(0, inst.n_racks, (rows, inst.job.n_tasks)),
                    inst.job.n_tasks, i) for i, inst in enumerate(instances)], dims.n_pad)
     return staging, tables, packed, dims
@@ -652,6 +682,150 @@ def scheduler_fleets(np):
     return insts, topo_insts
 
 
+def stage1_phase(np, torch, insts, topo_insts, cpm_fns) -> dict:
+    """Phase 1's stage-1 block: ``cpm_fleet_lb`` (plain fleet) and
+    ``cpm_fleet_lb_masked`` (under a topology) on phase 2's fleets at the
+    offline (16 x 8,192 rows) and serving (8 x 512) shapes, as the engine
+    gives them (int16 rows through the pinned row buffer, the packed
+    tables), against ``ref_fleet_lb`` (``torch.equal``) with and without
+    contention and at 0 rounds, and on an arm whose every block holds two
+    instances (64 rows each, half the block's rows reading their blob
+    through the read-only cache); timed beside the plain version and both
+    bounds, with the launch, where the time goes (``fleet_lb_parts``) and
+    one engine launch's host split. Returns each kernel's offline
+    kernel-table row and largest error."""
+    from repro_torch.core.vectorized import _fleet_lb_device
+    from repro_torch.kernels import cpm, ref
+
+    dev = torch.device("cuda")
+    regs = {}
+    for f in cpm_fns:
+        m = re.search(r"cpm_fleet_kernelILi(\d)", f["function"])
+        if m:
+            regs[int(m.group(1))] = f["registers"]
+    out = {}
+    for label, rows, n_inst in (("offline", 8192, 16), ("serving", 512, 8)):
+        for name, fleet_insts in (("fleet_lb", insts), ("fleet_lb_masked", topo_insts)):
+            staging, tables, packed, dims = stage1_inputs(np, torch, fleet_insts[:n_inst],
+                                                          rows, 2)
+            check(staging.rack.is_pinned() and staging.rack.dtype == torch.int16,
+                  "stage 1's rows are not int16 from pinned memory")
+            arms = [("engine", staging.rack.to(dev), staging.iid.to(dev))]
+            if label == "offline":
+                # Every 128-row block: 64 rows of instance 2p, then 64 of 2p + 1.
+                perm = torch.arange(staging.rack.shape[0]).reshape(n_inst // 2, 2, -1, 64)
+                perm = perm.transpose(1, 2).reshape(-1)
+                arms.append(("two_instances_a_block", arms[0][1][perm.to(dev)].contiguous(),
+                             arms[0][2][perm.to(dev)].contiguous()))
+            B = staging.rack.shape[0]
+            kw = dict(M_pad=dims.M_pad, n_iters=dims.n_iters, contention=True)
+            for arm, r16, i32 in arms:
+                r64, i64 = r16.long(), i32.long()
+                kern = lambda: cpm.fleet_combined_lb(r16, i32, packed, **kw)  # noqa: E731
+                plain = lambda: ref.ref_fleet_lb(r64, i64, *tables, **kw)  # noqa: E731
+                before = cpm.launches[name]
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                check(cpm.launches[name] == before + 1, f"{name}: not one launch a call")
+                err = float((got - want).abs().max().item())
+                check(torch.equal(got, want), f"{name} != plain at {label} {arm} (err {err})")
+                for other in (dict(kw, contention=False), dict(kw, n_iters=0)):
+                    check(torch.equal(cpm.fleet_combined_lb(r16, i32, packed, **other),
+                                      ref.ref_fleet_lb(r64, i64, *tables, **other)),
+                          f"{name} != plain at {label} {arm} with {other}")
+                ms = cuda_ms(torch, kern)
+                dev_ms = graph_ms(torch, kern)
+                plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
+                w_, _, _, mask_ = ref.ref_fleet_operands(r64, i64, *tables, M_pad=dims.M_pad,
+                                                         contention=False)
+                rounds = rounds_needed(torch, ref, w_, dims.n_iters, mask_, per_row=True)
+                del w_, mask_
+                (b_ms, b_by), old_b_ms = fleet_bound(np, packed, dims, r16.cpu().numpy(),
+                                                     i32.cpu().numpy(), rounds)
+                plan = cpm.fleet_launch_plan(B, packed, dims.M_pad)
+                emit("kernel", name=name, shape=label, arm=arm, B=B, n=dims.n_pad,
+                     m=dims.m_pad, M=dims.M_pad, n_iters=dims.n_iters,
+                     mean_rounds_needed=float(rounds.mean()), ms=ms, device_ms=dev_ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     int32_rows_bound_ms=old_b_ms, max_abs_err=err,
+                     host_us_per_call=host_us(torch, kern))
+                emit("stage1_launch", kernel=name, shape=label, arm=arm, B=B,
+                     rows_per_block=plan["rows_per_block"], blocks=plan["blocks"],
+                     sms=plan["sms"], sms_covered=min(plan["blocks"], plan["sms"]),
+                     staged_blob=bool(plan["staged_blob"]), smem_bytes=plan["smem_bytes"],
+                     pair_route=plan["pair_route"], registers=regs.get(packed.topo))
+                if arm != "engine":
+                    continue
+                if label == "offline":
+                    out[name] = (dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by),
+                                 err)
+                # Where the kernel's time goes: device ms without the
+                # contention terms, without rounds, and with neither (the
+                # rows' build: racks, edge cells, epilogue); and with no edge
+                # walked either (each blob's m_walk word, the second of its
+                # head, set to 0): the launch and the block's set-up.
+                def part(contention, n_iters, tables=packed):
+                    return graph_ms(torch, lambda: cpm.fleet_combined_lb(
+                        r16, i32, tables, M_pad=dims.M_pad, n_iters=n_iters,
+                        contention=contention))
+
+                cut = dataclasses.replace(packed, blob=packed.blob.clone())
+                cut.blob[:, 1] = 0
+                emit("fleet_lb_parts", kernel=name, shape=label, device_ms=dev_ms,
+                     no_contention_ms=part(False, dims.n_iters),
+                     no_rounds_ms=part(True, 0), build_only_ms=part(False, 0),
+                     no_walk_ms=part(False, 0, cut))
+                del cut
+                # One stage-1 launch as _run_fleet makes it: the pinned rows'
+                # copy in, launch to sync, the bounds' copy back into pinned
+                # memory; then the same unsynced, as the engine queues it.
+                split, whole = [], []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rd = staging.rack.to(dev, non_blocking=True)
+                    idd = staging.iid.to(dev, non_blocking=True)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    lb = cpm.fleet_combined_lb(rd, idd, packed, **kw)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    vals = staging.read([lb]).copy()
+                    t3 = time.perf_counter()
+                    split.append((t1 - t0, t2 - t1, t3 - t2))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    vals2 = staging.read([_fleet_lb_device(
+                        staging.rack.to(dev, non_blocking=True),
+                        staging.iid.to(dev, non_blocking=True), packed,
+                        block_b=1024, **kw)])
+                    whole.append(time.perf_counter() - t0)
+                check(np.array_equal(vals2, want.cpu().numpy()) and np.array_equal(vals, vals2),
+                      f"{name}: the engine's launch != plain at {label}")
+                h2d, run, d2h = (1e3 * float(np.median(c)) for c in zip(*split))
+                engine_ms = 1e3 * float(np.median(whole))
+                # Device memory one launch adds over what is allocated: the
+                # kernel's output, against the plain version's [B, n, n]
+                # adjacency (and mask).
+                peak = {}
+                for which, fn in (("kernel", kern), ("plain", plain)):
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    fn()
+                    torch.cuda.synchronize()
+                    peak[which] = (torch.cuda.max_memory_allocated() - base) / 2**20
+                emit("stage1_host_split", kernel=name, shape=label, B=B, h2d_ms=h2d,
+                     launch_to_sync_ms=run, d2h_ms=d2h, total_ms=h2d + run + d2h,
+                     engine_launch_ms=engine_ms,
+                     h2d_bytes=staging.rack.nbytes + staging.iid.nbytes, pinned=True,
+                     busy_share=dev_ms / engine_ms,
+                     launch_peak_mib=peak["kernel"], plain_launch_peak_mib=peak["plain"])
+            del arms, tables, packed, got, want, staging
+    torch.cuda.empty_cache()
+    return out
+
+
 def stage2_phase(np, torch, insts, topo_insts) -> tuple[dict, float]:
     """Phase 1's stage-2 block: ``fleet_evaluate`` on phase 2's fleets at
     the offline and serving shapes, plain, under a topology and wired-only,
@@ -694,7 +868,7 @@ def stage2_phase(np, torch, insts, topo_insts) -> tuple[dict, float]:
             # One stage-2 launch as _run_fleet makes it: the pinned rows'
             # copy in, launch to sync, the makespans' copy back into pinned
             # memory; then the same unsynced, as the engine queues it
-            # (_stage2_split, then _Stage2Rows.read). The device's busy
+            # (_stage2_split, then _FleetRows.read). The device's busy
             # share is the kernel's device time over that span.
             split, whole = [], []
             for _ in range(5):
@@ -948,7 +1122,7 @@ def library_ms(torch, fn):
 
 def stage2_bound_ms(torch, instances, batch_size: int) -> float:
     """Least ms of one stage-2 launch by bytes: the candidate block
-    (int16 [B, n_pad], as ``_Stage2Rows`` copies it to the card) and row
+    (int16 [B, n_pad], as ``_FleetRows`` copies it to the card) and row
     instance ids (int32 [B]) read once, the packed op tables of
     ``_stage2_tables`` read once, the makespans (f32 [B]) written once."""
     from repro_torch.core.simulator import build_op_tables
@@ -3056,7 +3230,7 @@ def main() -> int:
 
     from repro_torch.core import check_feasible
     from repro_torch.core.instance import Topology
-    from repro_torch.core.vectorized import schedule_fleet, vectorized_search
+    from repro_torch.core.vectorized import _stage2_devices, schedule_fleet, vectorized_search
     from repro_torch.kernels import build, cpm, ref, stage2
     from repro_torch.obs import Tracer
     from repro_torch.online import OnlineScheduler, production_arrivals
@@ -3160,90 +3334,10 @@ def main() -> int:
         del w, p, extra, mask
     torch.cuda.empty_cache()
 
-    # The fused stage-1 kernels on phase 2's fleet: offline (16 jobs x 8192
-    # candidates) and serving (8 x 512) shapes, without and with a topology.
-    from repro_torch.core.vectorized import _rows_to_device, _stage2_devices
-
     dev = torch.device("cuda")
-    for label, rows, n_inst in (("offline", 8192, 16), ("serving", 512, 8)):
-        for name, fleet_insts in (("fleet_lb", insts), ("fleet_lb_masked", topo_insts)):
-            rack, iid, tables, dims = stage1_inputs(np, torch, fleet_insts[:n_inst], rows, 2)
-            r32, i32 = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
-            B = rack.shape[0]
-            kw = dict(M_pad=dims.M_pad, n_iters=dims.n_iters, contention=True)
-            kern = lambda: cpm.fleet_combined_lb(r32, i32, *tables, **kw)  # noqa: E731
-            plain = lambda: ref.ref_fleet_lb(r32, i32, *tables, **kw)  # noqa: E731
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max().item())
-            max_err[name] = max(max_err[name], err)
-            check(torch.equal(got, want), f"{name} != plain at {label} (err {err})")
-            nc = dict(kw, contention=False)
-            check(torch.equal(cpm.fleet_combined_lb(r32, i32, *tables, **nc),
-                              ref.ref_fleet_lb(r32, i32, *tables, **nc)),
-                  f"{name} != plain without contention at {label}")
-            ms = cuda_ms(torch, kern)
-            dev_ms = graph_ms(torch, kern)
-            plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
-            w_, _, _, mask_ = ref.ref_fleet_operands(r32, i32, *tables, M_pad=dims.M_pad,
-                                                     contention=False)
-            rounds = rounds_needed(torch, ref, w_, dims.n_iters, mask_)
-            del w_, mask_
-            b_ms, b_by = fleet_bound((r32, i32, *tables), 4 * B, B, dims.n_pad,
-                                     dims.m_pad, dims.M_pad, rounds,
-                                     name == "fleet_lb_masked")
-            emit("kernel", name=name, shape=label, B=B, n=dims.n_pad, m=dims.m_pad,
-                 M=dims.M_pad, n_iters=dims.n_iters, mean_rounds_needed=rounds / B,
-                 ms=ms, device_ms=dev_ms,
-                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                 host_us_per_call=host_us(torch, kern))
-            if label == "offline":
-                table[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by)
-                # Where the kernel's time goes: device ms without the
-                # contention terms, without rounds, and with neither (the
-                # rows' build: racks, tile, edges, epilogue).
-                def part(contention, n_iters):
-                    return graph_ms(torch, lambda: cpm.fleet_combined_lb(
-                        r32, i32, *tables, M_pad=dims.M_pad, n_iters=n_iters,
-                        contention=contention))
-
-                emit("fleet_lb_parts", kernel=name, device_ms=dev_ms,
-                     no_contention_ms=part(False, dims.n_iters),
-                     no_rounds_ms=part(True, 0), build_only_ms=part(False, 0))
-                # One stage-1 launch as _run_fleet makes it: copy the rows
-                # in, launch and sync, copy the bounds back.
-                split = []
-                for _ in range(5):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    rd, idd = _rows_to_device(rack, dev), _rows_to_device(iid, dev)
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    lb = cpm.fleet_combined_lb(rd, idd, *tables, **kw)
-                    torch.cuda.synchronize()
-                    t2 = time.perf_counter()
-                    lb.cpu().numpy()
-                    t3 = time.perf_counter()
-                    split.append((t1 - t0, t2 - t1, t3 - t2))
-                h2d, run, d2h = (1e3 * float(np.median(c)) for c in zip(*split))
-                # Device memory one launch adds over what is allocated: the
-                # kernel's output, against the plain version's [B, n, n]
-                # adjacency (and mask), as the PyTorch glue formed them.
-                peak = {}
-                for which, fn in (("kernel", kern), ("plain", plain)):
-                    torch.cuda.synchronize()
-                    base = torch.cuda.memory_allocated()
-                    torch.cuda.reset_peak_memory_stats()
-                    fn()
-                    torch.cuda.synchronize()
-                    peak[which] = (torch.cuda.max_memory_allocated() - base) / 2**20
-                emit("stage1_host_split", kernel=name, B=B, h2d_ms=h2d,
-                     launch_to_sync_ms=run, d2h_ms=d2h, total_ms=h2d + run + d2h,
-                     h2d_bytes=rack.nbytes + iid.nbytes,
-                     launch_peak_mib=peak["kernel"], plain_launch_peak_mib=peak["plain"])
-            del r32, i32, tables, got, want
-    torch.cuda.empty_cache()
+    for name, (row, err) in stage1_phase(np, torch, insts, topo_insts, cpm_fns).items():
+        table[name] = row
+        max_err[name] = max(max_err[name], err)
 
     table["fleet_evaluate"], max_err["fleet_evaluate"] = stage2_phase(
         np, torch, insts, topo_insts)

@@ -14,9 +14,11 @@ masks) and solved by one pair of device programs per size bucket.
   §IV-A lower bound, computed batched on the device in one launch of the
   hand-written CUDA kernel :func:`repro_torch.kernels.cpm.fleet_combined_lb`,
   which builds each candidate's max-plus adjacency and contention terms on
-  chip from its racks and its instance's edge tables — the
-  critical-path bound (iterated max-plus relaxation on dense adjacency
-  blocks) maxed with the contention terms (per-rack work, aggregate
+  chip from its racks (int16, copied from the same pinned host buffer as
+  stage 2's) and its instance's edge tables (packed once a fleet) — the
+  critical-path bound (iterated max-plus relaxation over the DAG's edges,
+  equal to the dense relaxation bit for bit) maxed with the contention
+  terms (per-rack work, aggregate
   wired+wireless channel work; see :mod:`repro_torch.core.bounds` for the
   §IV-A term-to-array mapping). Candidates whose bound already meets the
   running incumbent are discarded without ever being scheduled; the
@@ -211,7 +213,7 @@ def _bucket_key(device, tensors, statics) -> tuple:
 
 def _scan_evaluate(
     rack,       # int16[B, n_pad]  candidate assignments (one job's tasks per row;
-                #                  the engine's rows: _Stage2Rows; int32 / int64 on the CPU)
+                #                  the engine's rows: _FleetRows; int32 / int64 on the CPU)
     inst_id,    # int32[B]         which fleet instance each row belongs to
     *tables,    # the 12 tables below (the plain version's) or their
                 # kstage2.PackedTables (the engine's, made once a fleet):
@@ -292,16 +294,6 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(a).to(device=device, dtype=dtype)
 
 
-def _rows_to_device(a: np.ndarray, device) -> torch.Tensor:
-    """Stage-1 racks / instance ids -> device: int32 as they are on a CUDA
-    device (the kernel reads them so, half the copy's bytes), int64
-    indices on the CPU (the plain version gathers with them). Stage 2's
-    rows go through :class:`_Stage2Rows`."""
-    if torch.device(device).type == "cuda":
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
-    return _to_device(a, device)
-
-
 def _stage2_devices(device: torch.device) -> list[torch.device]:
     """The devices stage 2 splits its rows over: this process's local
     cards (the reference's ``shard_map`` over ``jax.local_devices()``,
@@ -327,13 +319,14 @@ def _stage2_tables(tables: tuple, devs: list) -> list[tuple]:
     return [(packed.to(d),) for d in devs]
 
 
-class _Stage2Rows:
-    """Host buffers of stage 2's rows, written in place every launch:
-    int16 racks [B, n_pad] (every rack id fits: the kernel's state limit
-    caps M_pad at 32,768) and int32 instance ids [B], and the float32
-    scores read back. For a CUDA device they are allocated pinned, once,
-    so each card's slice goes with ``non_blocking=True``; on the CPU they
-    are plain host memory (pinning needs CUDA)."""
+class _FleetRows:
+    """Host buffers of the engine's candidate rows, written in place every
+    launch of either stage: int16 racks [B, n_pad] (every rack id fits:
+    the kernels' state limits cap M_pad at 32,768) and int32 instance ids
+    [B], and the float32 bounds or scores read back. For a CUDA device they
+    are allocated pinned, once, so each card's slice goes with
+    ``non_blocking=True``; on the CPU they are plain host memory (pinning
+    needs CUDA)."""
 
     def __init__(self, B: int, n_pad: int, device: torch.device):
         pin = device.type == "cuda"
@@ -345,10 +338,12 @@ class _Stage2Rows:
         self.pinned = pin
         self._copied: list = []  # events after the last copies out of the buffers
 
-    def fill(self, blocks, n_pad: int) -> None:
+    def fill(self, blocks, n_pad: int, span: int = 0) -> None:
         """Rows ``[lo, lo + len(block))`` of instance ``idx`` for each
-        ``(lo, block, n, idx)``, tasks past ``n`` on rack 0; every other
-        row all on rack 0 of instance 0."""
+        ``(lo, block, n, idx)``, tasks past ``n`` on rack 0, and the rows
+        after them up to ``lo + span`` all on rack 0 of instance ``idx``
+        (stage 1's kernel stages one instance's tables a block); every
+        other row all on rack 0 of instance 0."""
         rack, iid = self.rack_np, self.iid_np
         end = 0
         for lo, block, n, idx in blocks:
@@ -358,7 +353,9 @@ class _Stage2Rows:
             rack[lo:hi, :n] = block
             rack[lo:hi, n:n_pad] = 0
             iid[lo:hi] = idx
-            end = hi
+            end = max(hi, lo + span)
+            rack[hi:end] = 0
+            iid[hi:end] = idx
         rack[end:] = 0
         iid[end:] = 0
 
@@ -374,9 +371,10 @@ class _Stage2Rows:
         self._copied = []
 
     def read(self, parts: list[torch.Tensor]) -> np.ndarray:
-        """The scores of one launch's chunks, in order, on the host: into
-        the pinned buffer (each card's copy queued, then each card waited
-        for), or concatenated on the CPU."""
+        """The bounds or scores of one launch's chunks, in order, on the
+        host: into the pinned buffer (each card's copy queued, then each
+        card waited for; a view, valid until the next read), or
+        concatenated on the CPU."""
         if not self.pinned:
             return np.concatenate([p.numpy() for p in parts])
         lo = 0
@@ -393,7 +391,7 @@ def _stage2_split(rack: torch.Tensor, iid: torch.Tensor, tables_on: list, devs: 
     """Stage 2 over ``len(devs)`` equal row chunks in order, chunk i on
     ``devs[i]``; every chunk is launched before any is read. ``rack``
     (int16) and ``iid`` (int32) are host tensors, pinned for a card
-    (:class:`_Stage2Rows`): each chunk is copied with
+    (:class:`_FleetRows`): each chunk is copied with
     ``non_blocking=True`` (on the CPU it is a view). Each row is scored on
     its own, so the chunks' scores concatenated are the one-chunk scores
     bit for bit. (Each card's program counts as its own size bucket in
@@ -425,7 +423,7 @@ def make_batched_evaluator(inst: ProblemInstance, use_wireless: bool = True, dev
     n_dev = len(devs)
     tables_on = _stage2_tables(_build_eval_stack([inst], dims, use_wireless, "cpu", ops), devs)
     n = inst.job.n_tasks
-    rows = None  # _Stage2Rows, grown to the largest padded batch seen
+    rows = None  # _FleetRows, grown to the largest padded batch seen
 
     def evaluate(rack) -> torch.Tensor:
         nonlocal rows
@@ -433,7 +431,7 @@ def make_batched_evaluator(inst: ProblemInstance, use_wireless: bool = True, dev
         B = rack.shape[0]
         B_pad = _bucket(B) * (n_dev if _bucket(B) % n_dev else 1)
         if rows is None or rows.rack.shape[0] < B_pad:
-            rows = _Stage2Rows(B_pad, dims.n_pad, dev)
+            rows = _FleetRows(B_pad, dims.n_pad, dev)
         # The scores stay on the card unread, so the buffers are reused only
         # once the previous call's copies out of them have run.
         rows.wait()
@@ -502,21 +500,29 @@ def _build_lb_arrays(instances, dims: _FleetDims, device):
     return tuple(_to_device(a, device) for a in out)
 
 
+def _lb_tables(instances, dims: _FleetDims, device) -> tuple:
+    """The stage-1 tables of ``_build_lb_arrays`` packed once a fleet
+    (:func:`repro_torch.kernels.cpm.pack_lb_tables`, on the host) and
+    placed on ``device``: ``(PackedLB,)``, what ``_fleet_lb_device`` takes
+    on any device (the CPU route unpacks it once)."""
+    return (kcpm.pack_lb_tables(*_build_lb_arrays(instances, dims, "cpu")).to(device),)
+
+
 def _fleet_lb_device(
-    racks,      # int64[B, n_pad] (int32 on a CUDA device: _rows_to_device)
-    inst_id,    # int64[B] (racks' dtype)
-    src,        # int64[I, m_pad]
-    dst,        # int64[I, m_pad]
-    p_src,      # f32[I, m_pad]  source-task duration per edge (0 on padding)
-    c_local,    # f32[I, m_pad]  local delay per edge (-inf on padding)
-    c_net,      # f32[I, m_pad]  optimistic network duration (-inf on padding)
-    net_work,   # f32[I, m_pad]  min network duration (0 on padding)
-    p_task,     # f32[I, n_pad]  task durations (0 on padding)
-    chan_div,   # f32[I]         1 + |K| network channels
-    pair_ok=None,  # f32[I, M_pad, M_pad] 1 = rack pair shares a reachable
-                #                  subchannel (omitted: no topology in fleet)
-    uplift=None,   # f32[I, m_pad]  forced-wired uplift q - min(q, q̌)
-    *,
+    racks,      # int16[B, n_pad] (the engine's rows: _FleetRows; int32 / int64 on the CPU)
+    inst_id,    # int32[B] (int64 beside int64 racks)
+    *tables,    # the tables below (the plain version's) or their
+                # kcpm.PackedLB (the engine's, made once a fleet by _lb_tables):
+                # src, dst  int64[I, m_pad] edge tasks
+                # p_src     f32[I, m_pad]  source-task duration per edge (0 on padding)
+                # c_local   f32[I, m_pad]  local delay per edge (-inf on padding)
+                # c_net     f32[I, m_pad]  optimistic network duration (-inf on padding)
+                # net_work  f32[I, m_pad]  min network duration (0 on padding)
+                # p_task    f32[I, n_pad]  task durations (0 on padding)
+                # chan_div  f32[I]         1 + |K| network channels
+                # pair_ok   f32[I, M_pad, M_pad] 1 = rack pair shares a reachable
+                #           subchannel (omitted: no topology in fleet)
+                # uplift    f32[I, m_pad]  forced-wired uplift q - min(q, q̌)
     M_pad: int,
     n_iters: int,
     block_b: int,
@@ -527,7 +533,8 @@ def _fleet_lb_device(
     Builds the per-candidate max-plus adjacency (edge cost = p_u + r or
     p_u + min(q, q̌) depending on co-location), accumulates the contention
     terms and relaxes, all in one launch of the CUDA kernel
-    :func:`repro_torch.kernels.cpm.fleet_combined_lb`; on the CPU its plain
+    :func:`repro_torch.kernels.cpm.fleet_combined_lb`, which reads int16
+    racks, int32 instance ids and the packed tables; on the CPU its plain
     version :func:`repro_torch.kernels.ref.ref_fleet_lb` does the same in
     PyTorch and hands the adjacency to ``ref_combined_lb``.
 
@@ -539,16 +546,13 @@ def _fleet_lb_device(
     ``q`` on forced edges.
     """
     global LB_TRACE_COUNT
-    key = _bucket_key(
-        racks.device, (racks, src, p_task, pair_ok), (M_pad, n_iters, block_b, contention)
-    )
+    shapes = (racks,) + tuple(t.blob if isinstance(t, kcpm.PackedLB) else t for t in tables)
+    key = _bucket_key(racks.device, shapes, (M_pad, n_iters, block_b, contention))
     if key not in _seen_stage1:
         _seen_stage1.add(key)
         LB_TRACE_COUNT += 1
     return kcpm.fleet_combined_lb(
-        racks, inst_id, src, dst, p_src, c_local, c_net, net_work, p_task,
-        chan_div, pair_ok, uplift, M_pad=M_pad, n_iters=n_iters,
-        contention=contention,
+        racks, inst_id, *tables, M_pad=M_pad, n_iters=n_iters, contention=contention,
     )
 
 
@@ -583,22 +587,22 @@ def batched_lower_bound(
 
     if use_kernel:
         # LB-only dims: no op tables needed (only the n/m/M buckets and the
-        # relaxation depth feed the bound program).
+        # relaxation depth feed the bound program). The tables are packed
+        # once for the call; the rows go through the engine's row buffer.
         dims = _fleet_dims([inst], use_wireless=True)
-        lb_args = _build_lb_arrays([inst], dims, dev)
         B_pad = _bucket(B)
-        racks_pad = np.zeros((B_pad, dims.n_pad), dtype=np.int32)
-        racks_pad[:B, :n] = racks
+        rows = _FleetRows(B_pad, dims.n_pad, dev)
+        rows.fill([(0, racks, n, 0)], dims.n_pad)
         out = _fleet_lb_device(
-            _rows_to_device(racks_pad, dev),
-            _rows_to_device(np.zeros(B_pad, np.int32), dev),
-            *lb_args,
+            rows.rack.to(dev, non_blocking=True),
+            rows.iid.to(dev, non_blocking=True),
+            *_lb_tables([inst], dims, dev),
             M_pad=dims.M_pad,
             n_iters=dims.n_iters,
             block_b=min(block_b, B_pad),
             contention=contention,
         )
-        return out.cpu().numpy()[:B]
+        return rows.read([out])[:B].copy()
 
     if m == 0:
         base = np.broadcast_to(np.float32(np.max(job.p)), (B,)).astype(np.float32)
@@ -916,17 +920,20 @@ def _run_fleet(
     n_dev = len(devs)
     eval_tables = _stage2_tables(
         _build_eval_stack(instances, dims, use_wireless, "cpu", op_tables), devs)
-    lb_args = _build_lb_arrays(instances, dims, dev) if use_kernel else None
+    lb_tables = _lb_tables(instances, dims, dev) if use_kernel else None
     t2_0, t1_0 = TRACE_COUNT, LB_TRACE_COUNT
     launches = [0, 0]  # [stage1, stage2]
 
     # Stage 2's rows split evenly over the local cards (the reference's
-    # shard_map): B2 rounds up to a multiple of the card count.
+    # shard_map): B2 rounds up to a multiple of the card count. Both stages
+    # write their rows into one pinned buffer, reused launch after launch:
+    # each launch reads its results back (waiting for every card) before
+    # the next one writes, so the copies out of it are done by then.
     B1 = I * batch_size
     B2 = I * batch_size
     if B2 % n_dev:
         B2 += n_dev - B2 % n_dev
-    rows2 = _Stage2Rows(B2, dims.n_pad, dev)
+    rows = _FleetRows(B2, dims.n_pad, dev)
 
     # Patience default: stop at the first non-improving round (the
     # pre-portfolio rule) for a single strategy; give multi-strategy
@@ -957,15 +964,11 @@ def _run_fleet(
         # solo flow.
         for g0 in range(0, len(blocks), I):
             group = blocks[g0 : g0 + I]
-            # rows2's buffers are reused launch after launch: the read of the
-            # scores below waits for every card, so the copies out of them
-            # (and into the scores buffer, which apply_scores has read) are
-            # done before they are written again.
-            rows2.fill([(s * batch_size, blk, st.n, st.idx)
-                        for s, (st, blk, _tb, _tg) in enumerate(group)], dims.n_pad)
+            rows.fill([(s * batch_size, blk, st.n, st.idx)
+                       for s, (st, blk, _tb, _tg) in enumerate(group)], dims.n_pad)
             with tr.span("stage2_launch", rows=B2):
-                parts = _stage2_split(rows2.rack, rows2.iid, eval_tables, devs, dims)
-                vals = rows2.read(parts)
+                parts = _stage2_split(rows.rack, rows.iid, eval_tables, devs, dims)
+                vals = rows.read(parts)
             launches[1] += 1
             for s, (st, blk, tb, tg) in enumerate(group):
                 lo = s * batch_size
@@ -992,27 +995,24 @@ def _run_fleet(
                 pieces.append((ri, off, chunk[off : off + batch_size]))
         for g0 in range(0, len(pieces), I):
             group = pieces[g0 : g0 + I]
-            rack = np.zeros((B1, dims.n_pad), dtype=np.int32)
-            iid = np.zeros(B1, dtype=np.int32)
-            for s, (ri, _off, rows) in enumerate(group):
-                st = reqs[ri][0]
-                lo = s * batch_size
-                rack[lo : lo + rows.shape[0], : st.n] = rows
-                iid[lo : lo + batch_size] = st.idx
+            # A piece's instance id covers its whole batch_size block.
+            rows.fill([(s * batch_size, cands, reqs[ri][0].n, reqs[ri][0].idx)
+                       for s, (ri, _off, cands) in enumerate(group)], dims.n_pad,
+                      span=batch_size)
             with tr.span("stage1_launch", rows=B1, kernel=True):
-                lbs = _fleet_lb_device(
-                    _rows_to_device(rack, dev),
-                    _rows_to_device(iid, dev),
-                    *lb_args,
+                lbs = rows.read([_fleet_lb_device(
+                    rows.rack[:B1].to(dev, non_blocking=True),
+                    rows.iid[:B1].to(dev, non_blocking=True),
+                    *lb_tables,
                     M_pad=dims.M_pad,
                     n_iters=dims.n_iters,
                     block_b=min(1024, B1),
                     contention=contention,
-                ).cpu().numpy()
+                )])
             launches[0] += 1
-            for s, (ri, off, rows) in enumerate(group):
+            for s, (ri, off, cands) in enumerate(group):
                 lo = s * batch_size
-                out[ri][off : off + rows.shape[0]] = lbs[lo : lo + rows.shape[0]]
+                out[ri][off : off + cands.shape[0]] = lbs[lo : lo + cands.shape[0]]
         return out
 
     def prune_and_score(round_chunks) -> None:

@@ -48,11 +48,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
             _ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr,
         ],
         "cpm_critical_path": [_ptr, _ptr, _i32, _i32, _i32, _ptr],
-        # racks, inst_id, src, dst, p_src, c_local, c_net, net_work, p_task,
-        # chan_div, [pair_ok, uplift,] out, B, n_pad, m_pad, M_pad, n_iters,
-        # contention, stream
-        "cpm_fleet_lb": [*[_ptr] * 11, *[_i32] * 6, _ptr],
-        "cpm_fleet_lb_masked": [*[_ptr] * 13, *[_i32] * 6, _ptr],
+        # rack (int16), inst_id, packed blob, out, B, n_pad, m_pad, M_pad,
+        # topo, n_iters, contention, stream
+        "cpm_fleet_lb": [*[_ptr] * 4, *[_i32] * 7, _ptr],
+        "cpm_fleet_lb_masked": [*[_ptr] * 4, *[_i32] * 7, _ptr],
+        # B, n_pad, m_pad, M_pad, topo, out[5] -> the launch's rows a block,
+        # blocks, staged kernel section, shared bytes, SMs
+        "cpm_fleet_plan": [*[_i32] * 5, _ptr],
     },
     "flash_attention": {
         # dtype, q, k, v, out, lse (or null), strides[12], B, S, T, H, KV, D,

@@ -28,7 +28,9 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.cpm import _check, _raise_if, _stream
+from repro_torch.kernels.cpm import (
+    _U16, _bits, _check, _floats, _halves, _pair, _raise_if, _stream,
+)
 
 __all__ = [
     "MAX_CHANNELS",
@@ -61,7 +63,6 @@ MAX_CHANNELS = 16
 
 _INDEX_TABLES = ("kind", "op_task", "op_edge", "op_src", "op_dst")
 _DATA_TABLES = ("op_p", "op_wired", "op_wireless", "op_local")
-_U16 = 0xFFFF
 
 
 def state_words(n_pad: int, m_pad: int, M_pad: int, n_chan: int) -> int:
@@ -107,21 +108,6 @@ class PackedTables:
     def tables(self) -> tuple:
         """The 12 tables back (what the plain version reads), once."""
         return unpack_tables(self)
-
-
-def _pair(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """Two 16-bit fields in one int32 word (lo in bits 0-15)."""
-    w = lo.to(torch.int64) | (hi.to(torch.int64) << 16)
-    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
-
-
-def _halves(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    w = w.to(torch.int64)
-    return w & _U16, (w >> 16) & _U16
-
-
-def _bits(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.float32).contiguous().view(torch.int32)
 
 
 def pack_tables(
@@ -190,15 +176,12 @@ def unpack_tables(packed: PackedTables) -> tuple:
     op_src, op_dst = _halves(rec[..., 1])
     op_edge = _halves(rec[..., 2])[0]
 
-    def floats(w):
-        return w.contiguous().view(torch.float32)
-
     op_in = rec[..., 8:8 + indeg_pad].to(torch.int64)
     tail = blob[:, n_ops * 4 * Q:]
-    chan_free0 = floats(tail[:, 1:1 + n_chan])
-    reach = floats(tail[:, 1 + n_chan:1 + n_chan + M_pad * n_chan]).reshape(I, M_pad, n_chan)
-    return (kind, op_task, op_edge, op_src, op_dst, floats(rec[..., 3]), floats(rec[..., 5]),
-            floats(rec[..., 6]), floats(rec[..., 4]), op_in, chan_free0, reach)
+    chan_free0 = _floats(tail[:, 1:1 + n_chan])
+    reach = _floats(tail[:, 1 + n_chan:1 + n_chan + M_pad * n_chan]).reshape(I, M_pad, n_chan)
+    return (kind, op_task, op_edge, op_src, op_dst, _floats(rec[..., 3]), _floats(rec[..., 5]),
+            _floats(rec[..., 6]), _floats(rec[..., 4]), op_in, chan_free0, reach)
 
 
 def launch_plan(B: int, n_pad: int, m_pad: int, packed: PackedTables,

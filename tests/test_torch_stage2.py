@@ -126,7 +126,7 @@ def test_plain_version_matches_reference(seed, use_wireless, layout):
     tables = TV._build_eval_stack(insts, dims, use_wireless, "cpu", ops)
     kw = dict(m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan)
     before = dict(stage2.launches)
-    r64, i64 = TV._rows_to_device(rack, "cpu"), TV._rows_to_device(iid, "cpu")
+    r64, i64 = torch.from_numpy(rack).long(), torch.from_numpy(iid).long()
     assert r64.dtype == torch.int64
     plain = tref.ref_fleet_evaluate(r64, i64, *tables, **kw)
     np.testing.assert_array_equal(plain.numpy(), want)
@@ -176,7 +176,7 @@ def test_engine_stage2_is_the_wrapper():
     kw = dict(m_pad=dims.m_pad, M_pad=dims.M_pad, n_chan=dims.n_chan)
     want = tref.ref_fleet_evaluate(torch.from_numpy(rack), torch.from_numpy(iid), *tables, **kw)
     dev = torch.device("cpu")
-    rows = TV._Stage2Rows(rack.shape[0], dims.n_pad, dev)
+    rows = TV._FleetRows(rack.shape[0], dims.n_pad, dev)
     rows.rack_np[:] = rack
     rows.iid_np[:] = iid
     assert rows.rack.dtype == torch.int16 and rows.iid.dtype == torch.int32
@@ -258,7 +258,7 @@ def test_engine_int16_staging_equals_plain(monkeypatch, n_dev):
     tables_on = TV._stage2_tables(tables, devs)
     rng = np.random.default_rng(7)
     bs, B = 24, 24 * len(insts)
-    rows = TV._Stage2Rows(B, dims.n_pad, dev)
+    rows = TV._FleetRows(B, dims.n_pad, dev)
     for n_blocks in (len(insts), 2):
         blocks = []
         for s in range(n_blocks):
@@ -412,7 +412,7 @@ def test_cuda_kernel_equals_plain_version_on_card():
     to 16; n_chan 1 to 6, past the 4 the kernel unrolls; with and without
     a topology, a masked wireless column where an instance has fewer
     channels; one instance at distinct wired and wireless rates), on the
-    engine's inputs (int16 rows through ``_Stage2Rows``, the packed tables
+    engine's inputs (int16 rows through ``_FleetRows``, the packed tables
     of ``_stage2_tables``): rows packed 64 an instance, B = 203 rows of
     random instances (no multiple of a block; rows of other instances read
     their blob in place), and rows packed as the serving shape (B = 4,096)
@@ -449,7 +449,7 @@ def test_cuda_kernel_equals_plain_version_on_card():
                         for b, i in enumerate(iid):
                             n = insts[i].job.n_tasks
                             rack[b, :n] = rng.integers(0, insts[i].n_racks, n)
-                    rows = TV._Stage2Rows(rack.shape[0], dims.n_pad, dev)
+                    rows = TV._FleetRows(rack.shape[0], dims.n_pad, dev)
                     assert rows.pinned and rows.rack.is_pinned()
                     rows.rack_np[:] = rack
                     rows.iid_np[:] = iid
