@@ -68,12 +68,19 @@ from repro_torch.models.layers import (
     under_current_rules,
     unembed,
 )
+from repro_torch.obs.trace import current
 
 Params = Any
 
 __all__ = ["Model", "build_model", "count_params", "active_param_fraction", "AUX_COEF"]
 
 AUX_COEF = 0.01  # weight of the MoE load-balance loss (lm.py:48)
+
+# Spans on the current tracer (repro_torch.obs.trace.current). A remat'd
+# function's spans open again in the backward pass, inside RECOMPUTE.
+PERIOD = "lm.period"
+LOSS_CHUNK = "lm.loss_chunk"
+RECOMPUTE = "lm.recompute"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,8 +151,22 @@ def _remat(fn: Callable, *args):
     The recompute runs under the forward's activation rules, as
     ``jax.checkpoint``'s runs under the forward's sharding constraints."""
     if torch.is_grad_enabled():
-        return checkpoint(under_current_rules(fn), *args, use_reentrant=False)
+        return checkpoint(_recompute_span(under_current_rules(fn)), *args, use_reentrant=False)
     return fn(*args)
+
+
+def _recompute_span(fn: Callable) -> Callable:
+    """``fn``, under a RECOMPUTE span when it runs inside the backward pass
+    (the checkpoint's recompute) and a tracer is on."""
+
+    def run(*args):
+        tr = current()
+        if not tr.enabled or torch._C._current_autograd_node() is None:
+            return fn(*args)
+        with tr.span(RECOMPUTE):
+            return fn(*args)
+
+    return run
 
 
 def _stack(trees: list) -> Any:
@@ -510,17 +531,18 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
         def period_fn(x, lps):
             # The activation-sharding mode (act_in / act_mid / act_out) is
             # set by distribution.sharding, as in the JAX package.
-            x = shard(x, "act_in")
-            period_aux = None  # the period's sum, then the total (lm.py:355, :367)
-            for lp, (mixer, ffn) in zip(lps, pkinds):
-                x = _apply_mixer(lp["mixer"], cfg, mixer, x, cos, sin, mem)
-                x = shard(x, "act_mid")
-                x, a = _apply_ffn(lp["ffn"], cfg, ffn, x)
-                x = shard(x, "act_mid")
-                if a is not None:
-                    period_aux = a if period_aux is None else period_aux + a
-            # The carry saved by remat across the repeats.
-            return shard(x, "act_out"), period_aux
+            with current().span(PERIOD):
+                x = shard(x, "act_in")
+                period_aux = None  # the period's sum, then the total (lm.py:355, :367)
+                for lp, (mixer, ffn) in zip(lps, pkinds):
+                    x = _apply_mixer(lp["mixer"], cfg, mixer, x, cos, sin, mem)
+                    x = shard(x, "act_mid")
+                    x, a = _apply_ffn(lp["ffn"], cfg, ffn, x)
+                    x = shard(x, "act_mid")
+                    if a is not None:
+                        period_aux = a if period_aux is None else period_aux + a
+                # The carry saved by remat across the repeats.
+                return shard(x, "act_out"), period_aux
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         stacks = [_unstack(stacked, repeats) for stacked in params["layers"]]
@@ -557,11 +579,12 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
         chunk = next(c for c in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1) if S % c == 0)
 
         def chunk_ce(xc, lc, mc):
-            lg = (xc @ tbl.to(xc.dtype).T).to(torch.float32)
-            lg = shard(lg, "act_logits")
-            logz = torch.logsumexp(lg, dim=-1)
-            gold = _gold_logit(lg, lc)
-            return torch.sum((logz - gold) * mc), torch.sum(mc)
+            with current().span(LOSS_CHUNK):
+                lg = (xc @ tbl.to(xc.dtype).T).to(torch.float32)
+                lg = shard(lg, "act_logits")
+                logz = torch.logsumexp(lg, dim=-1)
+                gold = _gold_logit(lg, lc)
+                return torch.sum((logz - gold) * mc), torch.sum(mc)
 
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -58,8 +58,18 @@ from repro_torch.models.layers import (
     shard,
     to_local,
 )
+from repro_torch.obs.trace import current
 
 Params = dict[str, Any]
+
+# Spans and counters on the current tracer (repro_torch.obs.trace.current).
+ROUTE = "moe.route"
+AUX = "moe.aux"
+DISPATCH = "moe.dispatch"
+EXPERTS = "moe.experts"
+COMBINE = "moe.combine"
+DROPPED_PAIRS = "moe.dropped_pairs"  # (token, choice) pairs over the capacity: device
+PAIRS = "moe.pairs"  # every (token, choice) pair: host
 
 __all__ = ["init_moe", "moe_ffn", "route_top_k", "capacity"]
 
@@ -171,25 +181,37 @@ def moe_ffn(
     capacity_factor: float = 1.25,
     normalize: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [B, S, d], aux load-balance loss scalar)."""
+    """Returns (output [B, S, d], aux load-balance loss scalar).
+
+    With a tracer on, the current tracer counts the pairs dropped at the
+    capacity (``DROPPED_PAIRS``, a device sum) and all pairs (``PAIRS``),
+    in the forward pass only: not again in the backward's recompute."""
     if isinstance(x, DTensor):
         return _sharded_moe(params, x, n_experts, top_k, capacity_factor, normalize)
+    tr = current()
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    probs, gate_vals, expert_idx = _route(xf, params["router"]["w"], top_k, normalize)
+    with tr.span(ROUTE):
+        probs, gate_vals, expert_idx = _route(xf, params["router"]["w"], top_k, normalize)
 
-    # Auxiliary load-balancing loss (Switch-style).
-    me = probs.mean(dim=0)  # [E]
-    ce = F.one_hot(expert_idx, n_experts).to(torch.float32).sum(dim=1).mean(dim=0)
-    aux = n_experts * (me * ce).sum()
+    with tr.span(AUX):  # auxiliary load-balancing loss (Switch-style)
+        me = probs.mean(dim=0)  # [E]
+        ce = F.one_hot(expert_idx, n_experts).to(torch.float32).sum(dim=1).mean(dim=0)
+        aux = n_experts * (me * ce).sum()
 
     cap = capacity(T, top_k, n_experts, capacity_factor)
-    flat_expert, pos_c, keep, expert_in, _ = _dispatch(_pair_rows(xf, top_k), expert_idx,
-                                                       n_experts, cap)
+    with tr.span(DISPATCH):
+        flat_expert, pos_c, keep, expert_in, _ = _dispatch(_pair_rows(xf, top_k), expert_idx,
+                                                           n_experts, cap)
+    if tr.enabled and torch._C._current_autograd_node() is None:
+        tr.count(DROPPED_PAIRS, (~keep).sum())
+        tr.count(PAIRS, T * top_k)
     expert_in = shard(expert_in, "act_expert")
-    expert_out = _experts(params, expert_in, x.dtype)
-    out = _gated_sum(expert_out[flat_expert, pos_c], keep, gate_vals, T, d)
+    with tr.span(EXPERTS):
+        expert_out = _experts(params, expert_in, x.dtype)
+    with tr.span(COMBINE):
+        out = _gated_sum(expert_out[flat_expert, pos_c], keep, gate_vals, T, d)
     return out.reshape(B, S, d), aux
 
 
@@ -219,7 +241,12 @@ def _sharded_moe(params: Params, x: DTensor, n_experts: int, top_k: int,
     buffer's. The pairs' input rows pass through an identity whose
     backward sums their gradients over 'model' the same way, before the
     sum over each token's k pairs. The local parts declare their
-    gradients (:func:`repro_torch.models.layers.local_placements`)."""
+    gradients (:func:`repro_torch.models.layers.local_placements`).
+
+    It opens the one-device route's spans, but counts no pairs: ranks that
+    share rows route and dispatch the same pairs, so their sums would
+    count a pair once for each of them."""
+    tr = current()
     mesh = x.device_mesh
     B, S, d = x.shape
     T = B * S
@@ -228,33 +255,41 @@ def _sharded_moe(params: Params, x: DTensor, n_experts: int, top_k: int,
     xl = to_local(x, rows)
     Bl = xl.shape[0]
     xf = xl.reshape(Bl * S, d)
-    probs, gate_vals, expert_idx = _route(xf, to_local(params["router"]["w"], full, part),
-                                          top_k, normalize)
-    me = DTensor.from_local(probs.sum(dim=0), mesh, part, run_check=False) / T
-    ce = DTensor.from_local(F.one_hot(expert_idx, n_experts).to(torch.float32).sum(dim=(0, 1)),
-                            mesh, part, run_check=False) / T
-    aux = n_experts * (me * ce).sum()
+    with tr.span(ROUTE):
+        probs, gate_vals, expert_idx = _route(xf, to_local(params["router"]["w"], full, part),
+                                              top_k, normalize)
+    with tr.span(AUX):
+        me = DTensor.from_local(probs.sum(dim=0), mesh, part, run_check=False) / T
+        ce = DTensor.from_local(
+            F.one_hot(expert_idx, n_experts).to(torch.float32).sum(dim=(0, 1)),
+            mesh, part, run_check=False) / T
+        aux = n_experts * (me * ce).sum()
 
     cap = capacity(T, top_k, n_experts, capacity_factor)
-    counts = F.one_hot(expert_idx.reshape(-1), n_experts).sum(dim=0)
-    offset = None
-    if any(p.is_shard(0) for p in rows):
-        every = DTensor.from_local(counts[None], mesh, rows, run_check=False).full_tensor()
-        offset = every[:shard_index(mesh, rows, 0)].sum(dim=0)
-    split = _expert_split(mesh, rows, (n_experts, cap, d))
-    placed, grads = local_placements(rows, split)
-    n_local = n_experts // math.prod(mesh.size(i) for i in split)
-    pairs = _grad_summed(_pair_rows(xf, top_k), mesh, rows, split)
-    experts, pos_c, keep, buf, mine = _dispatch(pairs, expert_idx, n_experts, cap, offset,
-                                                shard_index(mesh, placed, 0) * n_local, n_local)
-    expert_in = DTensor.from_local(buf, mesh, grads, run_check=False).redistribute(mesh, placed)
+    with tr.span(DISPATCH):
+        counts = F.one_hot(expert_idx.reshape(-1), n_experts).sum(dim=0)
+        offset = None
+        if any(p.is_shard(0) for p in rows):
+            every = DTensor.from_local(counts[None], mesh, rows, run_check=False).full_tensor()
+            offset = every[:shard_index(mesh, rows, 0)].sum(dim=0)
+        split = _expert_split(mesh, rows, (n_experts, cap, d))
+        placed, grads = local_placements(rows, split)
+        n_local = n_experts // math.prod(mesh.size(i) for i in split)
+        pairs = _grad_summed(_pair_rows(xf, top_k), mesh, rows, split)
+        experts, pos_c, keep, buf, mine = _dispatch(
+            pairs, expert_idx, n_experts, cap, offset, shard_index(mesh, placed, 0) * n_local,
+            n_local)
+        expert_in = DTensor.from_local(buf, mesh, grads, run_check=False).redistribute(
+            mesh, placed)
     expert_in = shard(expert_in, "act_expert")
-    expert_out = to_local(_experts(params, expert_in, x.dtype), placed, grads)
-    out_pairs = expert_out[experts, pos_c]
-    if split:
-        out_pairs = _summed(torch.where(mine[:, None], out_pairs, torch.zeros(
-            (), dtype=out_pairs.dtype, device=out_pairs.device)), mesh, rows, split)
-    out = _gated_sum(out_pairs, keep, gate_vals, Bl * S, d)
+    with tr.span(EXPERTS):
+        expert_out = to_local(_experts(params, expert_in, x.dtype), placed, grads)
+    with tr.span(COMBINE):
+        out_pairs = expert_out[experts, pos_c]
+        if split:
+            out_pairs = _summed(torch.where(mine[:, None], out_pairs, torch.zeros(
+                (), dtype=out_pairs.dtype, device=out_pairs.device)), mesh, rows, split)
+        out = _gated_sum(out_pairs, keep, gate_vals, Bl * S, d)
     return DTensor.from_local(out.reshape(Bl, S, d), mesh, rows, run_check=False), aux
 
 

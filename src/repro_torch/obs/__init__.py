@@ -1,11 +1,18 @@
-# Ported from src/repro/obs/__init__.py; imports retargeted to repro_torch.
-"""Structured tracing and metrics export for the serving loop and solver.
+# Ported from src/repro/obs/__init__.py and extended: installed() and current().
+"""Structured tracing and metrics export for the serving loop, the solver,
+and the model and training paths.
 
 Public surface:
 
 * :class:`~repro_torch.obs.trace.Tracer` / :class:`~repro_torch.obs.trace.NullTracer`
   — nested wall-time spans, typed decision events, per-job lifecycle
-  marks, counters/gauges/histograms.
+  marks, counters/gauges/histograms. Under a recording
+  ``torch.profiler`` each span is also a ``record_function`` of its name;
+  a counter may sum 0-d device tensors on the device.
+* :func:`~repro_torch.obs.trace.installed` /
+  :func:`~repro_torch.obs.trace.current` — the process's tracer, which
+  the model and training paths (``runtime/steps.py``, ``optim``,
+  ``models/lm.py``, ``models/moe.py``) open their spans on.
 * :func:`~repro_torch.obs.export.write_chrome_trace` /
   :func:`~repro_torch.obs.export.chrome_trace_events` — Chrome/Perfetto
   ``trace_event`` JSON.
@@ -28,6 +35,8 @@ from repro_torch.obs.trace import (
     Span,
     Tracer,
     as_tracer,
+    current,
+    installed,
 )
 
 __all__ = [
@@ -39,6 +48,8 @@ __all__ = [
     "Tracer",
     "as_tracer",
     "chrome_trace_events",
+    "current",
+    "installed",
     "prometheus_exposition",
     "write_chrome_trace",
 ]

@@ -1,4 +1,5 @@
-# Ported from src/repro/obs/export.py; imports retargeted to repro_torch.
+# Ported from src/repro/obs/export.py; imports retargeted to repro_torch, and
+# counters read through Tracer.counter (a device counter is read there).
 """Exporters for :class:`~repro_torch.obs.trace.Tracer` state.
 
 Two render targets, both text, both dependency-free:
@@ -141,7 +142,7 @@ def prometheus_exposition(tracer: "Tracer") -> str:
     lines: list[str] = []
     for name in sorted(tracer.counters):
         lines.append(f"# TYPE {name} counter")
-        lines.append(f"{name} {tracer.counters[name]:g}")
+        lines.append(f"{name} {tracer.counter(name):g}")
     seen_gauges: set[str] = set()
     for (name, labels), v in sorted(tracer.gauges.items()):
         if name not in seen_gauges:

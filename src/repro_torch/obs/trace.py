@@ -1,5 +1,7 @@
-# Copied from src/repro/obs/trace.py; imports retargeted to repro_torch.
-"""Zero-dependency structured tracing for the serving loop and solver.
+# Ported from src/repro/obs/trace.py and extended: an installed tracer, the
+# profiler mirror and device counters.
+"""Structured tracing for the serving loop, the solver, and the model and
+training paths.
 
 The serving stack makes layered decisions per epoch — admission ordering,
 coflow commit-order search, backfill proofs, portfolio budget splits —
@@ -12,20 +14,42 @@ lifecycle marks in simulated time, and a small metrics registry
 histograms) that :mod:`repro_torch.obs.export` renders as a Chrome/Perfetto
 trace and a Prometheus-style text exposition.
 
-Everything is plain Python on the host — no jax, no I/O — so a traced
-serve differs from an untraced one only by appending records to lists.
+The scheduler takes its tracer as a ``tracer=`` argument. The model and
+training paths (``runtime/steps.py``, ``optim/grad.py``, ``optim/adamw.py``,
+``models/lm.py``, ``models/moe.py``) take none: they open their spans on
+the process's current tracer, ``current().span(name)``, which is the one
+:func:`installed` put in place, or :data:`NULL_TRACER`.
+
+While a ``torch.profiler`` session records, every span of an enabled
+tracer also opens ``torch.profiler.record_function`` under its own name,
+so the program's phases land in the profile on the kernels' clock, each
+with a device-side copy from its first kernel to its last. A counter
+may be bumped by a 0-d device tensor: the running sum stays on the
+device, and becomes a float only when it is read (:meth:`Tracer.counter`,
+the exporters), so a traced step adds no host-device sync.
+
 The default is :data:`NULL_TRACER`, whose every method is a no-op and
 whose ``span`` returns a shared reusable context manager, so passing
-``tracer=None`` anywhere keeps the hot loop bit-identical at negligible
-overhead (the stress lane asserts < 2%). Instrumented call sites guard
-any *extra computation* (not just the record) behind ``tracer.enabled``.
+``tracer=None``, or installing nothing, keeps the hot loop bit-identical
+at negligible overhead (a global read and a call a span). Instrumented
+call sites guard any *extra computation* (not just the record) behind
+``tracer.enabled``.
+
+One tracer serves one thread at a time. The autograd engine's thread
+opens spans (the remat recompute) while the main thread waits in
+``backward()``; those nest under the main thread's open span. Spans
+opened from two threads at once would interleave on one stack.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import typing
+
+import torch
+from torch.autograd import profiler as _profiler
 
 if typing.TYPE_CHECKING:  # pragma: no cover - type-only import
     from repro_torch.online.metrics import StreamingSeries
@@ -38,6 +62,8 @@ __all__ = [
     "Span",
     "Tracer",
     "as_tracer",
+    "current",
+    "installed",
 ]
 
 
@@ -97,11 +123,12 @@ class _SpanCtx:
     shared no-op instance forever.
     """
 
-    __slots__ = ("_tracer", "_span")
+    __slots__ = ("_tracer", "_span", "_mirror")
 
-    def __init__(self, tracer: "Tracer", span: Span):
+    def __init__(self, tracer: "Tracer", span: Span, mirror):
         self._tracer = tracer
         self._span = span
+        self._mirror = mirror  # the span's record_function, under a profiler
 
     def __enter__(self) -> "_SpanCtx":
         return self
@@ -110,6 +137,8 @@ class _SpanCtx:
         tr = self._tracer
         self._span.t1 = time.perf_counter() - tr.t0
         tr._stack.pop()
+        if self._mirror is not None:
+            self._mirror.__exit__(*exc)
 
     def set(self, **attrs) -> None:
         """Attach attributes discovered while the span is running."""
@@ -145,8 +174,10 @@ class Tracer:
 
     All timestamps are ``time.perf_counter()`` seconds relative to the
     tracer's construction (``t0``), so exported traces start near zero.
-    The metrics registry is deliberately tiny: ``counters`` are plain
-    monotonically-growing floats, ``gauges`` hold the last value set,
+    The metrics registry is deliberately tiny: ``counters`` are
+    monotonically-growing floats, or 0-d device tensors where a device
+    tensor was counted (read them with :meth:`counter`), ``gauges`` hold
+    the last value set,
     and ``series`` maps ``(name, labels)`` to a
     :class:`~repro_torch.online.metrics.StreamingSeries` — the same O(1)
     sketch the serving layer already uses — so histogram state stays
@@ -168,7 +199,9 @@ class Tracer:
     # -- spans / events / job marks ------------------------------------
 
     def span(self, name: str, **attrs) -> _SpanCtx:
-        """Open a nested wall-time span; use as a context manager."""
+        """Open a nested wall-time span; use as a context manager. Under a
+        recording ``torch.profiler`` it is also a ``record_function`` of
+        the same name."""
         sp = Span(
             name=name,
             t0=time.perf_counter() - self.t0,
@@ -180,7 +213,11 @@ class Tracer:
         )
         self.spans.append(sp)
         self._stack.append(sp.index)
-        return _SpanCtx(self, sp)
+        mirror = None
+        if _profiler._is_profiler_enabled:
+            mirror = _profiler.record_function(name)
+            mirror.__enter__()
+        return _SpanCtx(self, sp, mirror)
 
     def event(self, kind: str, **attrs) -> None:
         """Record a typed decision event at the current wall time."""
@@ -205,9 +242,21 @@ class Tracer:
     def _key(name: str, labels: dict) -> tuple[str, tuple]:
         return name, tuple(sorted(labels.items()))
 
-    def count(self, name: str, inc: float = 1.0) -> None:
-        """Increment a monotone counter."""
-        self.counters[name] = self.counters.get(name, 0.0) + inc
+    def count(self, name: str, inc: "float | torch.Tensor" = 1.0) -> None:
+        """Increment a monotone counter. A 0-d tensor ``inc`` keeps the
+        running sum a tensor on its device, in its dtype: no sync."""
+        prev = self.counters.get(name)
+        if prev is not None:
+            self.counters[name] = prev + inc
+        elif isinstance(inc, torch.Tensor):
+            self.counters[name] = inc.detach().clone()
+        else:
+            self.counters[name] = 0.0 + inc
+
+    def counter(self, name: str) -> float:
+        """A counter's value as a float (0 if never counted); a device
+        counter is read from the device here."""
+        return float(self.counters.get(name, 0.0))
 
     def gauge(self, name: str, value: float, **labels) -> None:
         """Set a gauge to its latest value (labelled)."""
@@ -235,9 +284,6 @@ class Tracer:
     def spans_named(self, name: str) -> "list[Span]":
         return [s for s in self.spans if s.name == name]
 
-    def events_of(self, kind: str) -> "list[Event]":
-        return [e for e in self.events if e.kind == kind]
-
 
 class NullTracer:
     """No-op tracer: every method returns immediately.
@@ -260,7 +306,7 @@ class NullTracer:
     def job(self, job_id: int, phase: str, sim_time: float, **attrs) -> None:
         return None
 
-    def count(self, name: str, inc: float = 1.0) -> None:
+    def count(self, name: str, inc: "float | torch.Tensor" = 1.0) -> None:
         return None
 
     def gauge(self, name: str, value: float, **labels) -> None:
@@ -279,3 +325,25 @@ NULL_TRACER = NullTracer()
 def as_tracer(tracer: "Tracer | NullTracer | None") -> "Tracer | NullTracer":
     """Normalize an optional tracer argument (``None`` → the null tracer)."""
     return NULL_TRACER if tracer is None else tracer
+
+
+_current: "Tracer | NullTracer | None" = None  # set by installed()
+
+
+def current() -> "Tracer | NullTracer":
+    """The process's installed tracer, or :data:`NULL_TRACER`."""
+    tr = _current
+    return NULL_TRACER if tr is None else tr
+
+
+@contextlib.contextmanager
+def installed(tracer: "Tracer | NullTracer"):
+    """Make ``tracer`` the process's current tracer for the block, and put
+    the previous one back on exit, also on an exception."""
+    global _current
+    prev = _current
+    _current = tracer
+    try:
+        yield tracer
+    finally:
+        _current = prev

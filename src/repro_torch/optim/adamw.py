@@ -38,6 +38,8 @@ from typing import Any
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.obs.trace import current
+
 __all__ = [
     "AdamWConfig",
     "adamw_init",
@@ -53,6 +55,10 @@ Params = Any
 
 # Largest number of elements updated at once (float32: 256 MiB a temporary).
 SLICE_ELEMENTS = 1 << 26
+
+# Spans on the current tracer (repro_torch.obs.trace.current).
+CLIP = "optim.clip"
+ADAMW = "optim.adamw"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,12 +199,14 @@ def adamw_update(
     """One AdamW step, in place. Returns (params, state, metrics) with the
     same parameter and moment tensors updated; metrics are ``grad_norm``
     (a 0-d device tensor) and ``lr`` (a float32 0-d CPU tensor)."""
+    tr = current()
     step = state["step"] + 1
     p_leaves = tree_leaves(params)
     g_leaves = [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
                 for p, g in zip(p_leaves, tree_leaves(grads))]
-    gnorm = global_norm(g_leaves)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    with tr.span(CLIP):
+        gnorm = global_norm(g_leaves)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = cosine_schedule(cfg, step)
     b1t = float(1.0 - torch.pow(_f32(cfg.b1), step.to(torch.float32)))
     b2t = float(1.0 - torch.pow(_f32(cfg.b2), step.to(torch.float32)))
@@ -214,9 +222,10 @@ def adamw_update(
         p.copy_(pf - lr_f * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf))
 
     leaves = zip(p_leaves, g_leaves, tree_leaves(state["m"]), tree_leaves(state["v"]))
-    for leaf in leaves:
-        p, g, m, v = (t.to_local() if isinstance(t, DTensor) else t for t in leaf)
-        for part in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
-            upd(*part)
+    with tr.span(ADAMW):
+        for leaf in leaves:
+            p, g, m, v = (t.to_local() if isinstance(t, DTensor) else t for t in leaf)
+            for part in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
+                upd(*part)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

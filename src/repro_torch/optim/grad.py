@@ -23,11 +23,17 @@ from typing import Any, Callable
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.obs.trace import current
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 __all__ = ["accumulate_grads", "compress_bf16", "decompress_bf16"]
 
 Params = Any
+
+# Spans on the current tracer (repro_torch.obs.trace.current).
+FORWARD = "train.forward"
+BACKWARD = "train.backward"
+GRAD_SCALE = "grad.scale"
 
 
 def accumulate_grads(
@@ -38,6 +44,7 @@ def accumulate_grads(
     """Mean loss and the gradient tree over ``micro_batches``, each run
     forward and backward in turn; the gradients are the parameters'
     ``.grad`` tensors (replaced, not added to)."""
+    tr = current()
     leaves = tree_leaves(params)
     for t in leaves:
         t.grad = None
@@ -45,14 +52,16 @@ def accumulate_grads(
     hooks = [t.register_hook(_placed_like(t)) for t in leaves if isinstance(t, DTensor)]
     try:
         for mb in micro_batches:
-            loss = loss_fn(params, mb)
-            loss.backward()
+            with tr.span(FORWARD):
+                loss = loss_fn(params, mb)
+            with tr.span(BACKWARD):
+                loss.backward()
             total = total + loss.detach()
     finally:
         for h in hooks:
             h.remove()
     inv = 1.0 / len(micro_batches)
-    with torch.no_grad():
+    with torch.no_grad(), tr.span(GRAD_SCALE):
         for t in leaves:
             if t.grad is None:  # a leaf no loss reached: the reference's zeros
                 t.grad = torch.zeros_like(t, dtype=torch.float32)

@@ -23,6 +23,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.distribution.sharding import batch_sharding, distribute
 from repro_torch.models.lm import Model
+from repro_torch.obs.trace import current
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adamw_init,
@@ -41,6 +42,10 @@ __all__ = [
 ]
 
 Params = Any
+
+# Spans on the current tracer (repro_torch.obs.trace.current).
+TRAIN_STEP = "train.step"
+PREFILL_STEP = "prefill.step"
 
 
 @dataclasses.dataclass
@@ -113,19 +118,20 @@ def build_train_step(
         return model.loss(params, mb)
 
     def train_step(state: TrainState, batch: dict[str, torch.Tensor]):
-        leaves = tree_leaves(state.params)
-        for t in leaves:
-            t.requires_grad_(True)
-        loss, grads = accumulate_grads(loss_fn, state.params, _micro_batches(batch, n_micro))
-        residual = state.residual
-        if compress_grads:
-            grads, residual = compress_bf16(grads, residual)
-            grads = tree_map(lambda g: g.to(torch.float32), grads)
-        params, opt, metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
-        for t in leaves:
-            t.grad = None
-        if isinstance(loss, DTensor):
-            loss = loss.full_tensor()
+        with current().span(TRAIN_STEP):
+            leaves = tree_leaves(state.params)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, grads = accumulate_grads(loss_fn, state.params, _micro_batches(batch, n_micro))
+            residual = state.residual
+            if compress_grads:
+                grads, residual = compress_bf16(grads, residual)
+                grads = tree_map(lambda g: g.to(torch.float32), grads)
+            params, opt, metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
+            for t in leaves:
+                t.grad = None
+            if isinstance(loss, DTensor):
+                loss = loss.full_tensor()
         return TrainState(params=params, opt=opt, residual=residual), dict(metrics, loss=loss)
 
     return train_step
@@ -137,7 +143,8 @@ def build_prefill_step(model: Model) -> Callable:
 
     @torch.no_grad()
     def prefill_step(params: Params, batch: dict[str, torch.Tensor]):
-        return model.prefill(params, batch["tokens"], memory=batch.get("memory"))
+        with current().span(PREFILL_STEP):
+            return model.prefill(params, batch["tokens"], memory=batch.get("memory"))
 
     return prefill_step
 
