@@ -108,8 +108,14 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      seamless-m4t-medium over 256 frames (4 x 256, 16 generated);
      llama-3.2-vision-11b over 1,600 patches (4 x 128, 8 generated). The
      last two are gated at prefill == decode within max(0.05, 0.02 *
-     n_layers); every serve checks finite logits and the exact flash and
-     decode launch counts of its layer kinds, and reports its bounds;
+     n_layers); every serve checks finite logits and the exact flash,
+     decode and MoE dispatch launch counts of its layer kinds, and reports
+     its bounds; 7e holds the MoE dispatch kernels (``moe_dispatch``: the
+     rank and the gather; its backward ``moe_dispatch_grad``) against the
+     plain route at phi3.5-MoE's prefill layer (8,192 tokens, 16 experts,
+     top 2, C 1,280, d 4,096, bf16) and a 64-request decode step
+     (``torch.equal`` on all five outputs and the gradient) and times both
+     beside the plain route and the bound of the bytes the run moves;
 
   8. trains llama3.2-3b: 8a holds the flash forward with its
      log-sum-exp and the three backward kernels (delta, dk and dv, dq)
@@ -136,7 +142,7 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      llama-3.2-vision-11b cut to 5 of 40 layers and jamba-v0.1-52b to 2 of
      32, so that the float32 state fits the card; seed 0, bf16 compute, 2
      micro-batches, 3 steps on the port's pipeline) with exact launch
-     counts, finite losses, grad_norm > 0 and moved parameters, reports ms
+     counts (the MoE dispatch's too), finite losses, grad_norm > 0 and moved parameters, reports ms
      a step, tokens/s, MFU, the bound and peak memory, profiles one more
      step, and holds vision's step at 4 layers with the kernels against
      the plain versions as 8c does;
@@ -226,7 +232,8 @@ GOLDEN_FLEET_COUNTERS = dict(
 # The port's own kernels (csrc/*.cu), reported by name in every profile.
 PORT_KERNELS = ("cpm_lanes_kernel", "cpm_fleet_kernel", "cpm_rows_kernel",
                 "fleet_evaluate_kernel", "flash_fwd_",
-                "decode_split_kernel", "decode_combine_kernel", "flash_bwd_")
+                "decode_split_kernel", "decode_combine_kernel", "flash_bwd_",
+                "moe_dispatch_")
 
 SERVE_JOBS = 200
 PROFILE_JOBS = 20
@@ -247,6 +254,8 @@ SOURCE = {
     "flash_bwd_delta": CSRC + "flash_attention_bwd.cu",
     "flash_bwd_dkdv": CSRC + "flash_attention_bwd.cu",
     "flash_bwd_dq": CSRC + "flash_attention_bwd.cu",
+    "moe_dispatch": CSRC + "moe_dispatch.cu",  # moe_dispatch_rank, moe_dispatch_gather
+    "moe_dispatch_grad": CSRC + "moe_dispatch.cu",  # moe_dispatch_grad_kernel
 }
 REPLACES = {
     "combined_lb": "src/repro/kernels/cpm.py:93",
@@ -267,6 +276,10 @@ REPLACES = {
     "flash_bwd_delta": "src/repro/models/flash.py:108",
     "flash_bwd_dkdv": "src/repro/models/flash.py:108",
     "flash_bwd_dq": "src/repro/models/flash.py:108",
+    # No Pallas kernel: the JAX package's dispatch in jnp, a cumulative sum
+    # of a one-hot and an .at[].add, and autograd's gather through it.
+    "moe_dispatch": "src/repro/models/moe.py:72",
+    "moe_dispatch_grad": "src/repro/models/moe.py:84",
 }
 
 # The serving cell: llama3.2-3b at its published widths.
@@ -1138,6 +1151,94 @@ def stage2_bound_ms(torch, instances, batch_size: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+# Phase 7e: the MoE dispatch at phi3.5-MoE's widths (E 16, k 2, d 4,096,
+# capacity factor 1.25, bf16): the benchmark cell's prefill layer (8,192
+# tokens: C 1,280) and a decode step of 64 requests (C 10). The router's
+# logits carry a bias that grows across the experts, so that drops bind.
+MOE_SHAPES = (("prefill", 8192), ("decode", 64))
+MOE_E, MOE_K, MOE_D, MOE_CF = 16, 2, 4096, 1.25
+
+
+def moe_dispatch_kernels(np, torch) -> dict:
+    """7e. The MoE dispatch kernels (``moe_dispatch``: the rank launch
+    ``moe_dispatch_rank`` then the gather ``moe_dispatch_gather``; and the
+    backward ``moe_dispatch_grad``) against the plain route
+    ``ref_moe_dispatch`` on card tensors at MOE_SHAPES: ``torch.equal`` on
+    all five outputs, twice, and on the source rows' gradient through each
+    route's autograd; each timed by CUDA events and alone in a CUDA graph
+    beside the plain route, with the bound of the bytes this run's inputs
+    move (the buffer written once, each kept pair's row read once, the ids
+    and the per-pair outputs). Returns the kernel table's rows at the
+    prefill shape."""
+    from repro_torch.kernels import moe_dispatch as kmd
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import capacity, route_top_k
+
+    gen = torch.Generator().manual_seed(7)
+    rows = {}
+    for label, T in MOE_SHAPES:
+        bias = torch.linspace(0.0, 2.0, MOE_E)
+        logits = torch.randn((T, MOE_E), generator=gen) + bias
+        _, idx = route_top_k(torch.softmax(logits, dim=-1).cuda(), MOE_K)
+        x = torch.randn((T, MOE_D), generator=gen).to("cuda", torch.bfloat16)
+        cap = capacity(T, MOE_K, MOE_E, MOE_CF)
+        before = dict(kmd.launches)
+        got = kmd.moe_dispatch(x, idx, MOE_E, cap)
+        check(kmd.launches["moe_dispatch"] == before["moe_dispatch"] + 1,
+              "moe_dispatch: not one launch a call")
+        want = ref.ref_moe_dispatch(x, idx, MOE_E, cap)
+        again = kmd.moe_dispatch(x, idx, MOE_E, cap)
+        for name, g, a, w in zip(("experts", "slots", "keep", "buffer", "mine"), got, again, want):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"moe_dispatch {name} != plain at {label}")
+            check(torch.equal(a, g), f"moe_dispatch {name} differs on a second call at {label}")
+        experts, slots, keep, buf, mine = got
+        n_kept = int(mine.sum())
+        size = x.element_size()
+        TK = T * MOE_K
+        # ids read, experts / slots (int64) and keep / mine (bool) written
+        pair_bytes = TK * (8 + 8 + 8 + 1 + 1)
+        b_ms = (buf.numel() * size + n_kept * MOE_D * size + pair_bytes) / HBM_BYTES_PER_S * 1e3
+
+        w = torch.randn(buf.shape, generator=gen).to("cuda", torch.bfloat16)
+        a = x.clone().requires_grad_()
+        b = x.clone().requires_grad_()
+        before = dict(kmd.launches)
+        (kmd.moe_dispatch(a, idx, MOE_E, cap)[3] * w).sum().backward()
+        check(kmd.launches["moe_dispatch_grad"] == before["moe_dispatch_grad"] + 1,
+              "moe_dispatch_grad: not one launch a backward")
+        (ref.ref_moe_dispatch(b, idx, MOE_E, cap)[3] * w).sum().backward()
+        grad_err = float((a.grad.float() - b.grad.float()).abs().max())
+        check(torch.equal(a.grad, b.grad), f"moe_dispatch_grad != plain at {label}")
+        del a, b
+        # the buffer's gradient at each kept pair's slot read, experts /
+        # slots / mine read, the rows written
+        g_ms = ((n_kept + T) * MOE_D * size + TK * (8 + 8 + 1)) / HBM_BYTES_PER_S * 1e3
+
+        ops = torch.ops.repro_torch
+        calls = {
+            "moe_dispatch": (lambda: kmd.moe_dispatch(x, idx, MOE_E, cap),
+                             lambda: ref.ref_moe_dispatch(x, idx, MOE_E, cap), b_ms),
+            "moe_dispatch_grad": (lambda: ops.moe_dispatch_grad(w, experts, slots, mine, T),
+                                  lambda: ref.ref_moe_dispatch_grad(w, experts, slots, mine, T),
+                                  g_ms),
+        }
+        for name, (kern, plain, bound_ms) in calls.items():
+            ms = cuda_ms(torch, kern)
+            dev_ms = graph_ms(torch, kern)
+            plain_ms = cuda_ms(torch, plain, reps=5, warmup=1)
+            emit("kernel", name=name, shape=label, T=T, k=MOE_K, E=MOE_E, C=cap, d=MOE_D,
+                 dtype="bfloat16", dropped_pairs=int((~keep).sum()), kept_pairs=n_kept,
+                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by="bytes", max_abs_err=0.0 if name == "moe_dispatch" else grad_err)
+            if label == "prefill":
+                rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by="bytes", max_abs_err=0.0, library_ms=None)
+        del got, want, again, buf, w, x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def attention_kernels(np, torch) -> dict:
     """5a. Both attention kernels against their plain versions, timed
     beside the plain version, SDPA and the bound. Returns the kernel-table
@@ -1621,7 +1722,9 @@ def family_phases(np, torch) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention
+    from repro_torch.kernels import moe_dispatch as kmd
     from repro_torch.launch.serve import serve_model
+    from repro_torch.models.config import layer_kinds
     from repro_torch.models.lm import build_model
     from repro_torch.runtime.steps import build_prefill_step, build_serve_step
 
@@ -1629,16 +1732,21 @@ def family_phases(np, torch) -> dict:
     counts = {}
 
     def serve_cell(label, cfg, model, params, prompts, gen, memory):
-        for k in attention.launches:
-            attention.launches[k] = 0
+        for counts_of in (attention.launches, kmd.launches):
+            for k in counts_of:
+                counts_of[k] = 0
         res = serve_model(model, params, prompts, gen, memory=memory)
-        launches = dict(attention.launches)
+        launches = {**attention.launches, **kmd.launches}
         check(res.all_finite, f"{label}: a logit is not finite")
         P = prompts.shape[1]
         pf, dec, enc = attention_calls(cfg)
         want = {k: 0 for k in launches}  # serving launches no training kernel
         want.update(flash_attention=2 * pf + (enc if memory is not None else 0),
                     decode_attention=dec * (P + gen - 1))
+        # one dispatch an MoE layer a call: two prefills, then a decode step
+        # a prompt token and a generated one
+        n_moe = sum(ffn == "moe" for _, ffn in layer_kinds(cfg))
+        want.update(moe_dispatch=n_moe * (2 + P + gen - 1))
         check(launches == want, f"{label}: attention launches {launches}, expected {want}")
         return res, launches
 
@@ -2841,6 +2949,7 @@ def family_training(np, torch) -> dict:
     Returns the counts by arm."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention
+    from repro_torch.kernels import moe_dispatch as kmd
     from repro_torch.launch.train import batch_to, data_config, make_pipeline
     from repro_torch.models.config import layer_kinds
     from repro_torch.models.lm import build_model
@@ -2877,8 +2986,9 @@ def family_training(np, torch) -> dict:
         # Every leaf moved: a strided sample of each (at most ~1 M entries),
         # since a second copy of jamba's weights would not fit beside its state.
         strides, samples = leaf_samples(leaves)
-        for key in attention.launches:
-            attention.launches[key] = 0
+        for counts_of in (attention.launches, kmd.launches):
+            for key in counts_of:
+                counts_of[key] = 0
         metrics, step_s, updates = [], [], None
         for b in batches[:FAMILY_TRAIN_STEPS]:
             t = time.perf_counter()
@@ -2888,12 +2998,16 @@ def family_training(np, torch) -> dict:
             if len(metrics) == 2:  # what 9e compares with: the update after 2 steps
                 updates = sampled_updates(state.params, strides, samples)
         launches = dict(attention.launches)
+        moe_launches = dict(kmd.launches)
         peak = torch.cuda.max_memory_allocated()
         calls = attention_calls(cfg)[0] * TRAIN_MICRO * FAMILY_TRAIN_STEPS
         want = {key: 0 for key in launches}
         want["flash_attention_lse"] = 2 * calls  # forward + recompute
         want.update({n: calls for n in BWD_KERNELS})
         check(launches == want, f"8e {label}: launches {launches}, expected {want}")
+        moe_calls = n_moe * TRAIN_MICRO * FAMILY_TRAIN_STEPS
+        want = dict(moe_dispatch=2 * moe_calls, moe_dispatch_grad=moe_calls)
+        check(moe_launches == want, f"8e {label}: MoE launches {moe_launches}, expected {want}")
         losses = [m["loss"] for m in metrics]
         gnorms = [m["grad_norm"] for m in metrics]
         check(all(np.isfinite(losses)), f"8e {label}: losses {losses}")
@@ -2913,8 +3027,9 @@ def family_training(np, torch) -> dict:
              share_of_bound=bound["step_bound_ms"] / (1e3 * step_mean), peak_gib=peak / 2**30,
              state_gib=16 * n_params / 2**30, losses=losses, grad_norms=gnorms,
              lrs=[m["lr"] for m in metrics], min_leaf_sample_moved=min(moved),
-             launches=launches, memory_at_start=at_start, **bound)
-        counts[label] = launches
+             launches=launches, moe_launches=moe_launches, memory_at_start=at_start,
+             **bound)
+        counts[label] = {**launches, **moe_launches}
 
         def one_step():
             step(state, batches[-1])
@@ -3496,14 +3611,17 @@ def main() -> int:
     production_scenario(np, torch, stream[:PROFILE_JOBS])
 
     # -- 7. the expert, recurrent and cross-attention families ----------------
-    family_phases(np, torch)
+    family_launches = family_phases(np, torch)
+    table.update(moe_dispatch_kernels(np, torch))
+    table["moe_dispatch"]["launches"] = family_launches[J_ARCH]["moe_dispatch"]
 
     # -- 8. the training path: llama3.2-3b trained at full width --------------
     table.update(training_kernels(np, torch))
     train_launches, kept8 = training_phases(np, torch)
     for name in ("flash_attention_lse",) + BWD_KERNELS:
         table[name]["launches"] = train_launches[name]
-    _, kept8e = family_training(np, torch)
+    family_train_launches, kept8e = family_training(np, torch)
+    table["moe_dispatch_grad"]["launches"] = family_train_launches["jamba"]["moe_dispatch_grad"]
 
     # -- 9. the multi-device stack on the card's 1 x 1 mesh -------------------
     for name, err in mesh_phases(np, torch, kept8, kept8e).items():

@@ -1,3 +1,4 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their build
-(:mod:`.build`), wrappers (:mod:`.cpm`, :mod:`.attention`, :mod:`.ops`)
-and plain PyTorch versions (:mod:`.ref`)."""
+(:mod:`.build`), wrappers (:mod:`.cpm`, :mod:`.stage2`, :mod:`.attention`,
+:mod:`.moe_dispatch`, :mod:`.ops`) and plain PyTorch versions
+(:mod:`.ref`)."""

@@ -35,8 +35,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 CPM_SOURCE = CSRC / "cpm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-_ptr, _i32, _i64p, _f32 = (
-    ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+_ptr, _i32, _i64, _i64p, _f32 = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int64),
+    ctypes.c_float,
 )
 
 # Library name -> {C function: argtypes}. Every function returns the
@@ -90,6 +91,17 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # B, n_pad, n_ops, m_pad, M_pad, indeg_pad, n_chan, out[5] -> the
         # launch's rows a block, blocks, staged blob, shared bytes, SMs
         "fleet_evaluate_plan": [*[_i32] * 7, _ptr],
+    },
+    "moe_dispatch": {
+        # src, src row bytes, rows, row bytes, ids, ids strides (2), k, TK,
+        # offset (or null), E, C, first, n_local, G, experts, slots, keep,
+        # mine, buffer, work, stream
+        "moe_dispatch": [
+            _ptr, _i64, _i32, _i32, _ptr, _i64, _i64, _i32, _i32, _ptr, *[_i32] * 5,
+            *[_ptr] * 7,
+        ],
+        # dtype, grad, experts, slots, mine, out, rows, per, C, d, stream
+        "moe_dispatch_grad": [_i32, *[_ptr] * 5, *[_i32] * 4, _ptr],
     },
     "decode_attention": {
         # dtype, q, k, v, kv_len (or null), kv_len_all, out, part,

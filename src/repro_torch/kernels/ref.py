@@ -31,10 +31,17 @@ rounding points, on unrepeated K and V.
 ``ref_decode_attention_split`` is a plain model of the decode kernel's
 split and combine, for the tests only.
 
+``ref_moe_dispatch`` is the twin of the JAX package's MoE dispatch (a
+cumulative sum of a one-hot for the slots, ``.at[].add`` for the buffer):
+the CPU route of ``models/moe.py``. The kernels of
+``csrc/moe_dispatch.cu`` equal it with ``torch.equal``, and
+``ref_moe_dispatch_grad`` is the plain version of their backward.
+
 The CPU routes of :mod:`repro_torch.kernels.cpm`,
-:mod:`repro_torch.kernels.stage2` and :mod:`repro_torch.kernels.attention`
-and the tests use them;
-``chip_smoke.py`` holds the kernels against them on the card.
+:mod:`repro_torch.kernels.stage2`, :mod:`repro_torch.kernels.attention`
+and :mod:`repro_torch.kernels.moe_dispatch` and the tests use them;
+``chip_smoke.py`` and the ``cuda`` tests hold the kernels against them on
+the card.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "NEG_INF",
@@ -58,6 +66,8 @@ __all__ = [
     "ref_flash_bwd_dq",
     "ref_decode_attention",
     "ref_decode_attention_split",
+    "ref_moe_dispatch",
+    "ref_moe_dispatch_grad",
 ]
 
 NEG_INF = -1e30
@@ -468,3 +478,65 @@ def ref_decode_attention_split(
         den = (w * torch.stack(ls)).sum(dim=0)
         out[b] = num / den.clamp_min(1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def ref_moe_dispatch(src: torch.Tensor, expert_idx: torch.Tensor, n_experts: int, cap: int,
+                     offset: torch.Tensor | None = None, first: int = 0,
+                     n_local: int | None = None):
+    """(experts [TK], slots [TK], keep [TK], buffer [n_local, C, d], mine
+    [TK]) of the TK (token, choice) pairs of ``expert_idx`` [T, k], the
+    twin of the JAX package's dispatch (``src/repro/models/moe.py:72-84``).
+    Pair p = t * k + j reads row ``p // (TK // rows)`` of ``src`` [rows, d]:
+    its token's row of [T, d], or its own of [TK, d].
+
+    Each pair's slot is its rank among the pairs routed to its expert in
+    row-major order (a cumulative sum of the one-hot), plus ``offset[e]``
+    (the pairs of earlier rows held elsewhere); ``keep`` drops the pairs at
+    or over ``cap``, whose slot becomes 0. The kept pairs routed to experts
+    ``first`` .. ``first + n_local - 1`` (all by default; ``mine``) are
+    scattered into a buffer of those experts, ``experts`` being each pair's
+    index there (0 for a pair of another expert); every other pair adds
+    zeros (a dropped pair into slot 0 of its expert, as ``.at[].add``
+    does)."""
+    TK = expert_idx.numel()
+    d = src.shape[-1]
+    n_local = n_local or n_experts
+    pairs = src
+    if src.shape[0] != TK:
+        pairs = src[torch.arange(TK, device=src.device) // (TK // src.shape[0])]
+    flat_expert = expert_idx.reshape(TK)  # row-major: pair p = t*k + j
+    onehot = F.one_hot(flat_expert, n_experts)  # [TK, E]
+    pos_all = onehot.cumsum(dim=0) - 1
+    if offset is not None:
+        pos_all = pos_all + offset
+    pos = pos_all.gather(1, flat_expert[:, None])[:, 0]
+    keep = pos < cap
+    pos_c = torch.where(keep, pos, torch.zeros_like(pos))
+
+    experts, mine = flat_expert, keep
+    if n_local != n_experts:
+        ours = (flat_expert >= first) & (flat_expert < first + n_local)
+        experts = torch.where(ours, flat_expert - first, torch.zeros_like(flat_expert))
+        mine = keep & ours
+    gathered = torch.where(mine[:, None], pairs, torch.zeros((), dtype=pairs.dtype,
+                                                             device=pairs.device))
+    expert_in = torch.zeros((n_local, cap, d), dtype=pairs.dtype, device=pairs.device)
+    expert_in.index_put_((experts, pos_c), gathered, accumulate=True)
+    return experts, pos_c, keep, expert_in, mine
+
+
+def ref_moe_dispatch_grad(grad: torch.Tensor, experts: torch.Tensor, slots: torch.Tensor,
+                          mine: torch.Tensor, rows: int) -> torch.Tensor:
+    """The gradient [rows, d] of :func:`ref_moe_dispatch`'s source rows from
+    its buffer's ``grad`` [n_local, C, d]: each row's sum over its TK / rows
+    pairs, in ascending choice order in float32 and rounded once to
+    ``grad``'s type, of ``grad`` at each ``mine`` pair's slot (the kernel
+    ``moe_dispatch_grad``'s order)."""
+    per = experts.numel() // rows
+    g = torch.where(mine[:, None], grad[experts, slots], torch.zeros(
+        (), dtype=grad.dtype, device=grad.device)).to(torch.float32)
+    g = g.reshape(rows, per, grad.shape[-1])
+    acc = g[:, 0]
+    for j in range(1, per):
+        acc = acc + g[:, j]
+    return acc.to(grad.dtype).contiguous()

@@ -15,9 +15,16 @@ depend on them:
   * the capacity is ``max(ceil(T * k / E * cf), k)`` in the reference's
     float order (``moe.py:68-69``);
   * a pair's slot is its rank among the pairs routed to its expert, in
-    the row-major (token, choice) order of a cumulative sum (``:72-76``);
-    a dropped pair adds zeros into slot 0 of its expert, as ``.at[].add``
-    does (``:83-84``).
+    the row-major (token, choice) order of a cumulative sum (``:72-76``).
+
+The dispatch (:func:`_dispatch`) has two routes with the same values. On
+the CPU it is the plain twin of the JAX package's cumulative sum and
+``.at[].add``, where a dropped pair adds zeros into slot 0 of its expert
+(``:83-84``; :func:`repro_torch.kernels.ref.ref_moe_dispatch`). On a card
+it is two hand-written launches (:mod:`repro_torch.kernels.moe_dispatch`):
+a row-major rank of each pair, then one writer a cell of the buffer, which
+copies its pair's row or writes zeros. Both read each pair's row in place
+from the token rows.
 
 The JAX package's ``shard`` hooks stand at its lines: the expert buffer
 and the expert FFN's hidden state are placed over 'model' under a mesh
@@ -49,6 +56,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.distribution.sharding import shard_index
+from repro_torch.kernels import moe_dispatch, ref
 from repro_torch.models.layers import (
     _normal,
     init_linear,
@@ -70,6 +78,7 @@ EXPERTS = "moe.experts"
 COMBINE = "moe.combine"
 DROPPED_PAIRS = "moe.dropped_pairs"  # (token, choice) pairs over the capacity: device
 PAIRS = "moe.pairs"  # every (token, choice) pair: host
+KERNEL_DISPATCHES = "moe.kernel_dispatches"  # dispatches through the CUDA kernels: host
 
 __all__ = ["init_moe", "moe_ffn", "route_top_k", "capacity"]
 
@@ -116,39 +125,23 @@ def _pair_rows(xf: torch.Tensor, top_k: int) -> torch.Tensor:
     return xf[token_of_pair]
 
 
-def _dispatch(pairs: torch.Tensor, expert_idx: torch.Tensor, n_experts: int, cap: int,
+def _dispatch(src: torch.Tensor, expert_idx: torch.Tensor, n_experts: int, cap: int,
               offset: torch.Tensor | None = None, first: int = 0, n_local: int | None = None):
     """(experts [TK], slots [TK], keep [TK], buffer [n_local, C, d], mine
-    [TK]) of the pairs whose token rows are ``pairs`` [TK, d]: each
-    (token, choice) pair's slot is its rank among the pairs routed to its
-    expert in row-major order, plus ``offset[e]`` (the pairs of earlier
-    rows held elsewhere); ``keep`` drops the pairs at or over ``cap``.
-    The kept pairs routed to experts ``first`` .. ``first + n_local - 1``
-    (all by default; ``mine``) are scattered into a buffer of those
-    experts, ``experts`` being each pair's index there (0 for a pair of
-    another expert); every other pair adds zeros (a dropped pair into
-    slot 0 of its expert, as ``.at[].add`` does)."""
-    TK, d = pairs.shape
-    n_local = n_local or n_experts
-    flat_expert = expert_idx.reshape(TK)  # row-major: pair p = t*k + j
-    onehot = F.one_hot(flat_expert, n_experts)  # [TK, E]
-    pos_all = onehot.cumsum(dim=0) - 1
-    if offset is not None:
-        pos_all = pos_all + offset
-    pos = pos_all.gather(1, flat_expert[:, None])[:, 0]
-    keep = pos < cap
-    pos_c = torch.where(keep, pos, torch.zeros_like(pos))
-
-    experts, mine = flat_expert, keep
-    if n_local != n_experts:
-        ours = (flat_expert >= first) & (flat_expert < first + n_local)
-        experts = torch.where(ours, flat_expert - first, torch.zeros_like(flat_expert))
-        mine = keep & ours
-    gathered = torch.where(mine[:, None], pairs, torch.zeros((), dtype=pairs.dtype,
-                                                             device=pairs.device))
-    expert_in = torch.zeros((n_local, cap, d), dtype=pairs.dtype, device=pairs.device)
-    expert_in.index_put_((experts, pos_c), gathered, accumulate=True)
-    return experts, pos_c, keep, expert_in, mine
+    [TK]) of the (token, choice) pairs of ``expert_idx`` [T, k], pair p
+    reading row ``p // (TK // rows)`` of ``src``: token rows [T, d], or a
+    row a pair [TK, d] (:func:`repro_torch.kernels.ref.ref_moe_dispatch`
+    says what each output is). The device picks the route: a CPU tensor
+    takes the plain twin of the JAX package's dispatch, a CUDA one the
+    hand-written rank and gather (which refuse what they cannot take),
+    counted on the current tracer (``KERNEL_DISPATCHES``, forward only).
+    Both give the same values."""
+    if not src.is_cuda:
+        return ref.ref_moe_dispatch(src, expert_idx, n_experts, cap, offset, first, n_local)
+    tr = current()
+    if tr.enabled and torch._C._current_autograd_node() is None:
+        tr.count(KERNEL_DISPATCHES, 1)
+    return moe_dispatch.moe_dispatch(src, expert_idx, n_experts, cap, offset, first, n_local)
 
 
 def _experts(params: Params, expert_in: torch.Tensor, dtype) -> torch.Tensor:
@@ -202,8 +195,7 @@ def moe_ffn(
 
     cap = capacity(T, top_k, n_experts, capacity_factor)
     with tr.span(DISPATCH):
-        flat_expert, pos_c, keep, expert_in, _ = _dispatch(_pair_rows(xf, top_k), expert_idx,
-                                                           n_experts, cap)
+        flat_expert, pos_c, keep, expert_in, _ = _dispatch(xf, expert_idx, n_experts, cap)
     if tr.enabled and torch._C._current_autograd_node() is None:
         tr.count(DROPPED_PAIRS, (~keep).sum())
         tr.count(PAIRS, T * top_k)
