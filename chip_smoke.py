@@ -115,7 +115,13 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
      plain route at phi3.5-MoE's prefill layer (8,192 tokens, 16 experts,
      top 2, C 1,280, d 4,096, bf16) and a 64-request decode step
      (``torch.equal`` on all five outputs and the gradient) and times both
-     beside the plain route and the bound of the bytes the run moves;
+     beside the plain route and the bound of the bytes the run moves; 7f
+     holds the selective-scan kernel (``selective_scan``, Mamba-1's scan)
+     against the plain loop at d_inner 8,192 in bf16 (B 2 x S 4,096 and B
+     16 x S 512, z a strided view, the card test's per-element bar), times
+     it beside the plain loop and its bound, then runs ai21-jamba2-mini cut
+     to 16 layers through ``build_prefill_step`` and checks one kernel
+     launch and one ``mamba.kernel_scans`` a Mamba-1 layer a call (14);
 
   8. trains llama3.2-3b: 8a holds the flash forward with its
      log-sum-exp and the three backward kernels (delta, dk and dv, dq)
@@ -233,7 +239,7 @@ GOLDEN_FLEET_COUNTERS = dict(
 PORT_KERNELS = ("cpm_lanes_kernel", "cpm_fleet_kernel", "cpm_rows_kernel",
                 "fleet_evaluate_kernel", "flash_fwd_",
                 "decode_split_kernel", "decode_combine_kernel", "flash_bwd_",
-                "moe_dispatch_")
+                "moe_dispatch_", "selective_scan_fwd")
 
 SERVE_JOBS = 200
 PROFILE_JOBS = 20
@@ -256,6 +262,7 @@ SOURCE = {
     "flash_bwd_dq": CSRC + "flash_attention_bwd.cu",
     "moe_dispatch": CSRC + "moe_dispatch.cu",  # moe_dispatch_rank, moe_dispatch_gather
     "moe_dispatch_grad": CSRC + "moe_dispatch.cu",  # moe_dispatch_grad_kernel
+    "selective_scan": CSRC + "selective_scan.cu",  # selective_scan_fwd
 }
 REPLACES = {
     "combined_lb": "src/repro/kernels/cpm.py:93",
@@ -280,6 +287,9 @@ REPLACES = {
     # of a one-hot and an .at[].add, and autograd's gather through it.
     "moe_dispatch": "src/repro/models/moe.py:72",
     "moe_dispatch_grad": "src/repro/models/moe.py:84",
+    # No TPU kernel: the JAX package has no Mamba-1 (its Jamba runs a
+    # Mamba-2-style SSD).
+    "selective_scan": "none",
 }
 
 # The serving cell: llama3.2-3b at its published widths.
@@ -1236,6 +1246,129 @@ def moe_dispatch_kernels(np, torch) -> dict:
                                   bound_by="bytes", max_abs_err=0.0, library_ms=None)
         del got, want, again, buf, w, x
         torch.cuda.empty_cache()
+    return rows
+
+
+# Phase 7f: Mamba-1's selective scan at AI21-Jamba2-Mini's widths (d_inner
+# 8,192, N 16, bf16) at the benchmark cell's longest and shortest calls
+# (8,192 tokens each), then the cell's 16-layer configuration (14 Mamba-1
+# layers) through the normal prefill path.
+SCAN_SHAPES = ((2, 4096), (16, 512))
+SCAN_DI, SCAN_N = 8192, 16
+JM_ARCH, JM_LAYERS = "ai21-jamba2-mini", 16
+
+
+def selective_scan_kernels(np, torch) -> dict:
+    """7f. The selective-scan kernel (``selective_scan_fwd`` behind
+    ``repro_torch::selective_scan``) against the plain loop
+    ``ref_selective_scan`` on card tensors at SCAN_SHAPES, z the strided
+    half of in_proj's output as the mixer passes it, Mamba's init for
+    A_log, D and dt_bias: each element within 2^-8 of the loop's float32
+    value plus 1e-3 of the output's spread (tests/test_torch_jamba.py's
+    card test), one launch a call, two calls equal; each timed by CUDA
+    events and alone in a CUDA graph beside the plain loop, with the bound
+    of the bytes and float32 operations this run's inputs give. Then
+    JM_ARCH cut to JM_LAYERS layers, seed-0 bf16 weights, through
+    ``build_prefill_step`` at both shapes: finite logits, and exactly one
+    kernel launch and one ``mamba.kernel_scans`` a Mamba-1 layer a call,
+    the counts set to 0 just before each call. Returns the kernel table's
+    row at the first shape, its launches those of one prefill call."""
+    import dataclasses as dc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as kss
+    from repro_torch.models.config import layer_kinds
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.ssm import KERNEL_SCANS
+    from repro_torch.obs.trace import Tracer, installed
+    from repro_torch.runtime.steps import build_prefill_step
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    di, N = SCAN_DI, SCAN_N
+    A_log = torch.log(torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).repeat(di, 1)
+    D = torch.ones(di, device="cuda")
+    dt0 = torch.exp(math.log(1e-3) + torch.rand(di, generator=gen, device="cuda")
+                    * math.log(100.0))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))  # the inverse softplus of dt0
+    rows = {}
+    for B, S in SCAN_SHAPES:
+        label = f"B{B}xS{S}"
+        xz = torch.randn(B, S, 2 * di, generator=gen, device="cuda").bfloat16()
+        x, z = xz[..., :di].contiguous(), xz[..., di:]
+        dt = torch.randn(B, S, di, generator=gen, device="cuda").bfloat16()
+        Bm, Cm = (torch.randn(B, S, N, generator=gen, device="cuda").bfloat16()
+                  for _ in range(2))
+        args = (x, dt, z, Bm, Cm, A_log, D, dt_bias)
+        before = kss.launches["selective_scan"]
+        got = kss.selective_scan(*args)
+        check(kss.launches["selective_scan"] == before + 1,
+              f"selective_scan: not one launch a call at {label}")
+        plain_args = tuple(t.float() for t in (x, dt, z, Bm, Cm)) + (A_log, D, dt_bias)
+        want = ref.ref_selective_scan(*plain_args)
+        err = (got.float() - want).abs()
+        bar = 2.0**-8 * want.abs() + 1e-3 * want.std()
+        worst = float((err / bar).max())
+        check(worst <= 1.0, f"selective_scan != plain at {label}: error {worst:.3g} of its bar")
+        check(torch.equal(kss.selective_scan(*args), got),
+              f"selective_scan differs on a second call at {label}")
+        # x, dt, z read and out written once, B and C read once, A_log, D
+        # and dt_bias read once; 6 float32 operations a (token, channel, state)
+        nbytes = sum(t.numel() * t.element_size() for t in (x, dt, z, got, Bm, Cm, A_log, D,
+                                                            dt_bias))
+        bound_ms, bound_by = _larger(nbytes, kss.scan_flops(x, Bm), F32_OPS_PER_S)
+        ms = cuda_ms(torch, lambda: kss.selective_scan(*args))
+        dev_ms = graph_ms(torch, lambda: kss.selective_scan(*args))
+        plain_ms = cuda_ms(torch, lambda: ref.ref_selective_scan(*plain_args), reps=2, warmup=1)
+        max_err = float(err.max())
+        emit("kernel", name="selective_scan", shape=label, B=B, S=S, d_inner=di, N=N,
+             dtype="bfloat16", ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+             bound_by=bound_by, bound_share_pct=100.0 * bound_ms / dev_ms,
+             max_abs_err=max_err, worst_err_of_bar=worst)
+        if not rows:
+            rows["selective_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by, max_abs_err=max_err,
+                                          library_ms=None)
+        del xz, x, z, dt, Bm, Cm, args, plain_args, got, want, err, bar
+        torch.cuda.empty_cache()
+
+    cfg = dc.replace(get_config(JM_ARCH), n_layers=JM_LAYERS)
+    n_mamba = sum(mixer == "mamba1" for mixer, _ in layer_kinds(cfg))
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = model.init(0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    prefill = build_prefill_step(model)
+    rng = np.random.default_rng(0)
+    for B, S in SCAN_SHAPES:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).cuda()
+        prefill(params, {"tokens": tokens})  # warm
+        torch.cuda.synchronize()
+        kss.launches["selective_scan"] = 0
+        program = Tracer()
+        with installed(program):
+            logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launched, counted = kss.launches["selective_scan"], program.counter(KERNEL_SCANS)
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name}: a prefill logit is not finite")
+        check(launched == n_mamba and counted == n_mamba,
+              f"{cfg.name} prefill B {B} S {S}: {launched} scan launches and {counted} "
+              f"kernel scans, expected {n_mamba} (one a Mamba-1 layer)")
+        del logits
+        call_ms = cuda_ms(torch, lambda: prefill(params, {"tokens": tokens}), reps=5, warmup=1)
+        emit("jamba2_prefill", arch=f"{cfg.name}[{JM_LAYERS} layers]", B=B, S=S,
+             mamba_layers=n_mamba, scan_launches=launched, kernel_scans=counted,
+             init_s=init_s, call_ms=call_ms, tokens_per_s=B * S / call_ms * 1e3,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    rows["selective_scan"]["launches"] = n_mamba
+    del params, model, prefill, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("scan_phase", seconds=time.perf_counter() - t_phase)
     return rows
 
 
@@ -3614,6 +3747,7 @@ def main() -> int:
     family_launches = family_phases(np, torch)
     table.update(moe_dispatch_kernels(np, torch))
     table["moe_dispatch"]["launches"] = family_launches[J_ARCH]["moe_dispatch"]
+    table.update(selective_scan_kernels(np, torch))
 
     # -- 8. the training path: llama3.2-3b trained at full width --------------
     table.update(training_kernels(np, torch))

@@ -1,4 +1,5 @@
-# Copied from src/repro/configs/__init__.py; imports retargeted to repro_torch.
+# Copied from src/repro/configs/__init__.py; imports retargeted to repro_torch,
+# PORT_ARCH_IDS added.
 """Assigned-architecture registry: one module per architecture.
 
 Every module defines CONFIG (the full, paper-exact configuration) and the
@@ -26,6 +27,10 @@ ARCH_IDS = [
     "phi3_5_moe_42b",
 ]
 
+# Configurations of the port's own, with no JAX counterpart (ARCH_IDS
+# lists the JAX package's).
+PORT_ARCH_IDS = ["ai21_jamba2_mini"]
+
 # Aliases matching the assignment spelling.
 ALIASES = {
     "deepseek-67b": "deepseek_67b",
@@ -43,8 +48,8 @@ ALIASES = {
 
 def get_config(name: str) -> ModelConfig:
     name = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if name not in ARCH_IDS:
-        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
+    if name not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
 
@@ -76,6 +81,7 @@ def smoke_config(name: str) -> ModelConfig:
         ssm_heads=4,
         ssm_state_dim=16,
         ssm_chunk=16,
+        ssm_dt_rank=0,
         max_seq_len=128,
     )
 

@@ -1,4 +1,5 @@
-# Copied from src/repro/configs/jamba_v0_1_52b.py; imports retargeted to repro_torch.
+# Copied from src/repro/configs/jamba_v0_1_52b.py; imports retargeted to repro_torch, a
+# note on the published architecture added to the docstring.
 """Jamba-v0.1-52B — hybrid Mamba+attention 7:1 with MoE [arXiv:2403.19887; hf].
 
 32 layers, d_model 4096, attention every 8th layer (offset 3 -> layers
@@ -7,6 +8,11 @@ top-2) on every other layer, dense MLP d_ff 14336 otherwise. vocab 65536.
 Hardware adaptation (DESIGN.md): Mamba-1 selective scan is realized as
 Mamba-2-style SSD chunked scan (MXU-friendly matmul formulation).
 Mamba state + 4 attention layers => long_500k decode RUNS.
+
+A stand-in that mirrors the JAX package: the published architecture
+(Mamba-1 with a decay per channel and state, dt / B / C norms, attention
+at offset 4 without RoPE, top-2 gates not renormalised) is
+``repro_torch.configs.ai21_jamba2_mini``.
 """
 
 from repro_torch.models.config import ModelConfig

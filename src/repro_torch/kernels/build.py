@@ -103,6 +103,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # dtype, grad, experts, slots, mine, out, rows, per, C, d, stream
         "moe_dispatch_grad": [_i32, *[_ptr] * 5, *[_i32] * 4, _ptr],
     },
+    "selective_scan": {
+        # dtype, x, dt, z, B, C, A_log, D, dt_bias, out, strides[8], rows, S,
+        # d_inner, n_state, stream
+        "selective_scan": [_i32, *[_ptr] * 9, _i64p, *[_i32] * 4, _ptr],
+    },
     "decode_attention": {
         # dtype, q, k, v, kv_len (or null), kv_len_all, out, part,
         # strides[8], B, T, H, KV, D, n_splits, scale, stream

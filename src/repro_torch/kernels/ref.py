@@ -37,6 +37,12 @@ the CPU route of ``models/moe.py``. The kernels of
 ``csrc/moe_dispatch.cu`` equal it with ``torch.equal``, and
 ``ref_moe_dispatch_grad`` is the plain version of their backward.
 
+``ref_selective_scan`` is the plain version of Mamba-1's selective scan
+(``csrc/selective_scan.cu``): a loop over time of float32 steps on the
+[B, d_inner, N] state. The kernel takes its exponentials in the SFU's
+approximation, so they agree within float32 round-off of the state and
+the output's rounding to its type.
+
 The CPU routes of :mod:`repro_torch.kernels.cpm`,
 :mod:`repro_torch.kernels.stage2`, :mod:`repro_torch.kernels.attention`
 and :mod:`repro_torch.kernels.moe_dispatch` and the tests use them;
@@ -68,6 +74,7 @@ __all__ = [
     "ref_decode_attention_split",
     "ref_moe_dispatch",
     "ref_moe_dispatch_grad",
+    "ref_selective_scan",
 ]
 
 NEG_INF = -1e30
@@ -540,3 +547,26 @@ def ref_moe_dispatch_grad(grad: torch.Tensor, experts: torch.Tensor, slots: torc
     for j in range(1, per):
         acc = acc + g[:, j]
     return acc.to(grad.dtype).contiguous()
+
+
+def ref_selective_scan(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor, Bm: torch.Tensor,
+                       Cm: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+                       dt_bias: torch.Tensor) -> torch.Tensor:
+    """Mamba-1's selective scan from a zero state, gated, in float32:
+    x, dt, z [B, S, d_inner] (the conv output, dt before its bias and
+    softplus, the gate), Bm, Cm [B, S, N], A_log [d_inner, N], D and
+    dt_bias [d_inner]. With delta = softplus(dt + dt_bias) and A =
+    -exp(A_log), each step t takes s = exp(delta_t A) s + (delta_t x_t) B_t
+    and gives y_t = s C_t + D x_t; returns y * silu(z) in x's type."""
+    A = -torch.exp(A_log.to(torch.float32))
+    delta = F.softplus(dt.to(torch.float32) + dt_bias.to(torch.float32))
+    xf = x.to(torch.float32)
+    Bf, Cf = Bm.to(torch.float32), Cm.to(torch.float32)
+    s = torch.zeros(x.shape[0], x.shape[2], A.shape[1], dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        dlt = delta[:, t, :, None]
+        s = torch.exp(dlt * A) * s + (dlt * xf[:, t, :, None]) * Bf[:, t, None, :]
+        ys.append((s * Cf[:, t, None, :]).sum(dim=-1))
+    y = torch.stack(ys, dim=1) + D.to(torch.float32) * xf
+    return (y * F.silu(z.to(torch.float32))).to(x.dtype)

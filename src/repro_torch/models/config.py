@@ -1,8 +1,10 @@
-# Copied from src/repro/models/config.py.
+# Copied from src/repro/models/config.py and extended: ``ssm_kind``,
+# ``ssm_dt_rank`` and ``rope``, the port's own (their defaults give the
+# reference's configurations unchanged).
 """Unified model configuration covering all assigned architecture families.
 
 A model is a stack of (mixer, ffn) layer kinds:
-  mixer ∈ {attn, attn_cross, mamba, slstm, mlstm}
+  mixer ∈ {attn, attn_cross, cross, mamba, mamba1, slstm, mlstm}
   ffn   ∈ {mlp, moe, none}
 plus an optional non-causal encoder stack (audio/enc-dec) and stubbed
 modality frontends (audio frames / vision patches arrive as precomputed
@@ -33,6 +35,7 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 500000.0
+    rope: bool = True  # False: no positional encoding in self-attention (Jamba)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
@@ -49,7 +52,10 @@ class ModelConfig:
     attn_every: int = 0
     attn_offset: int = 0
 
-    # SSM (mamba/SSD)
+    # SSM: "ssd" (Mamba-2 style, one decay a head) or "mamba1" (Mamba-1's
+    # selective scan, a decay a (channel, state), with Jamba's dt/B/C norms).
+    ssm_kind: str = "ssd"
+    ssm_dt_rank: int = 0  # mamba1's dt projection rank; 0 -> ceil(d_model / 16)
     ssm_expand: int = 2
     ssm_state_dim: int = 64
     ssm_conv_dim: int = 4
@@ -74,10 +80,18 @@ class ModelConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         assert self.n_heads % max(self.n_kv_heads, 1) == 0
+        if self.ssm_kind not in ("ssd", "mamba1"):
+            raise ValueError(f"ssm_kind must be 'ssd' or 'mamba1', got {self.ssm_kind!r}")
 
     @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        """Mamba-1's dt projection rank (``ssm_dt_rank``, or Mamba's
+        default ``ceil(d_model / 16)`` when it is 0)."""
+        return self.ssm_dt_rank or -(-self.d_model // 16)
 
     @property
     def ssm_head_dim(self) -> int:
@@ -92,7 +106,9 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
         if cfg.xlstm_slstm_every:
             mixer = "slstm" if i % cfg.xlstm_slstm_every == 0 else "mlstm"
         elif cfg.attn_every:
-            mixer = "attn" if i % cfg.attn_every == cfg.attn_offset else "mamba"
+            # getattr: the JAX package's config (no ssm_kind) is read here too.
+            ssm = "mamba1" if getattr(cfg, "ssm_kind", "ssd") == "mamba1" else "mamba"
+            mixer = "attn" if i % cfg.attn_every == cfg.attn_offset else ssm
         elif cfg.cross_attn_every and i % cfg.cross_attn_every == cfg.cross_attn_offset:
             mixer = "cross"  # cross-attention-only block (Mllama style)
         elif cfg.n_enc_layers:

@@ -505,8 +505,11 @@ def decode_attention(
     n_heads: int,
     n_kv_heads: int,
     head_dim: int,
+    rope: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token attention against a KV cache; returns (out, k', v').
+    With ``rope`` off the query and the new key take no rotation (a model
+    without positional encoding, as Jamba).
 
     Unlike the JAX package, which returns new cache arrays, the new K/V
     row is written into ``cache_k`` / ``cache_v`` in place (they are
@@ -524,12 +527,14 @@ def decode_attention(
     over the batch as the cache is."""
     B = x.shape[0]
     q = split_heads(linear(params["wq"], x), (B, 1, n_heads, head_dim))
-    positions = torch.arange(pos, pos + 1, device=x.device)
-    cos, sin = rope_tables(positions, head_dim, rope_theta)
-    q = apply_rope(q, cos[None], sin[None])
+    if rope:
+        positions = torch.arange(pos, pos + 1, device=x.device)
+        cos, sin = rope_tables(positions, head_dim, rope_theta)
+        q = apply_rope(q, cos[None], sin[None])
     k_new = split_heads(linear(params["wk"], x), (B, 1, n_kv_heads, head_dim))
     v_new = split_heads(linear(params["wv"], x), (B, 1, n_kv_heads, head_dim))
-    k_new = apply_rope(k_new, cos[None], sin[None])
+    if rope:
+        k_new = apply_rope(k_new, cos[None], sin[None])
     if isinstance(cache_k, DTensor):
         for cache, row in ((cache_k, k_new), (cache_v, v_new)):
             _placed_cache_write(cache, row, pos)

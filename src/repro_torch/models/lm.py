@@ -13,11 +13,12 @@ serving functions:
   init_cache(batch, max_len, device, memory=None)  -> cache (decode state)
   decode_step(params, cache, token)                -> (logits [B, 1, V], cache)
 
-Mixers: attn (causal self), attn_cross (self + cross), cross (cross-only),
-mamba (SSD), slstm, mlstm. FFNs: mlp (SwiGLU), moe, none. ``memory`` is
-the raw frames of an encoder-decoder model (``forward`` and ``prefill``
-encode them) or the patches of a cross-attention model; the decode cache
-holds the encoded memory.
+Mixers: attn (causal self; RoPE unless ``cfg.rope`` is off), attn_cross
+(self + cross), cross (cross-only), mamba (SSD), mamba1 (Mamba-1's
+selective scan, the port's own), slstm, mlstm. FFNs: mlp (SwiGLU), moe,
+none. ``memory`` is the raw frames of an encoder-decoder model
+(``forward`` and ``prefill`` encode them) or the patches of a
+cross-attention model; the decode cache holds the encoded memory.
 
 The parameter tree is the JAX package's: nested dicts, with the layers of
 each position of the layer-kind period stacked along a leading repeat
@@ -217,6 +218,7 @@ def _gold_logit(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # Recurrent mixers: parameter key, zero decode state, one decode step.
 _RECURRENT = {
     "mamba": ("ssd", ssm.ssd_init_state, ssm.ssd_decode_step),
+    "mamba1": ("mamba", ssm.mamba1_init_state, ssm.mamba1_decode_step),
     "slstm": ("cell", ssm.slstm_init_state, ssm.slstm_decode_step),
     "mlstm": ("cell", ssm.mlstm_init_state, ssm.mlstm_decode_step),
 }
@@ -244,6 +246,8 @@ def _init_mixer(gen: torch.Generator, cfg: ModelConfig, mixer: str, dtype) -> Pa
         return p
     if mixer == "mamba":
         return {"norm": norm, "ssd": ssm.init_ssd(gen, cfg, dtype)}
+    if mixer == "mamba1":
+        return {"norm": norm, "mamba": ssm.init_mamba1(gen, cfg, dtype)}
     if mixer == "slstm":
         return {"norm": norm, "cell": ssm.init_slstm(gen, cfg, dtype)}
     if mixer == "mlstm":
@@ -273,19 +277,21 @@ def _apply_mixer(lp, cfg: ModelConfig, mixer: str, x, cos, sin, memory):
     h = rms_norm(lp["norm"], x, cfg.norm_eps)
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     if mixer == "attn":
-        return x + attention(lp["attn"], h, cos, sin, *heads)
+        return x + attention(lp["attn"], h, cos, sin, *heads, use_rope=cfg.rope)
     if mixer == "cross":
         return x + attention(
             lp["attn"], h, cos, sin, *heads, causal=False, kv_input=memory, use_rope=False
         )
     if mixer == "attn_cross":
-        x = x + attention(lp["attn"], h, cos, sin, *heads)
+        x = x + attention(lp["attn"], h, cos, sin, *heads, use_rope=cfg.rope)
         h2 = rms_norm(lp["xnorm"], x, cfg.norm_eps)
         return x + attention(
             lp["xattn"], h2, cos, sin, *heads, causal=False, kv_input=memory, use_rope=False
         )
     if mixer == "mamba":
         y, _ = ssm.ssd_forward(lp["ssd"], cfg, h)
+    elif mixer == "mamba1":
+        y = ssm.mamba1_forward(lp["mamba"], cfg, h)
     elif mixer == "slstm":
         y, _ = ssm.slstm_forward(lp["cell"], cfg, h)
     elif mixer == "mlstm":
@@ -332,7 +338,8 @@ def _decode_mixer(lp, cfg: ModelConfig, mixer: str, x, pos: int, mc, rep: int, m
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     if mixer in ("attn", "attn_cross"):
         out, _, _ = decode_attention(
-            lp["attn"], h, pos, mc["k"][rep], mc["v"][rep], cfg.rope_theta, *heads
+            lp["attn"], h, pos, mc["k"][rep], mc["v"][rep], cfg.rope_theta, *heads,
+            rope=cfg.rope,
         )
         x = x + out
         if mixer == "attn_cross":
@@ -358,6 +365,9 @@ def _recurrent_decode(mixer: str, p, cfg: ModelConfig, h, mc, rep: int):
     on each rank's rows and heads (``ssm._sharded_ssd_step``), the xLSTM
     steps on each rank's rows (:func:`_mesh_decode`)."""
     step = _RECURRENT[mixer][2]
+    if isinstance(h, DTensor) and mixer == "mamba1":
+        raise NotImplementedError("Mamba-1 has no mesh route: its decode step runs on one "
+                                  "device's local tensors only")
     if isinstance(h, DTensor) and mixer != "mamba":
         return _mesh_decode(step, p, cfg, h, mc, rep)
     y, state = step(p, cfg, h, _take(mc, rep))
@@ -486,6 +496,8 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
         return params
 
     def _rope(S: int, device):
+        if not cfg.rope:
+            return None, None
         cos, sin = rope_tables(torch.arange(S, device=device), cfg.head_dim, cfg.rope_theta)
         return cos[None], sin[None]
 
@@ -500,7 +512,7 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16) -> Model:
             h = rms_norm(lp["mixer"]["norm"], x, eps)
             x = x + attention(
                 lp["mixer"]["attn"], h, cos, sin, cfg.n_heads, cfg.n_kv_heads,
-                cfg.head_dim, causal=False,
+                cfg.head_dim, causal=False, use_rope=cfg.rope,
             )
             h2 = rms_norm(lp["ffn"]["norm"], x, eps)
             return shard(x + mlp_swiglu(lp["ffn"]["mlp"], h2), "act_hidden")

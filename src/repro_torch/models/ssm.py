@@ -1,5 +1,6 @@
-"""State-space and recurrent mixers: SSD (Mamba-2 style) and xLSTM blocks
-(counterpart of ``repro.models.ssm``).
+"""State-space and recurrent mixers: SSD (Mamba-2 style), Mamba-1 and
+xLSTM blocks (counterpart of ``repro.models.ssm``; Mamba-1 is the port's
+own, the JAX package has none).
 
 SSD runs the chunked formulation: the intra-chunk work is Q x Q products,
 the inter-chunk pass a Python loop over the chunk boundary states (the
@@ -10,7 +11,12 @@ sLSTM is sequential, a Python loop over time around the cell
 (``ssm.py:400``) with the input projection hoisted out of it.
 
 None of these loops is a kernel of the JAX package (no ``pallas_call``):
-they run as PyTorch ops here, on the card as on the CPU.
+they run as PyTorch ops here, on the card as on the CPU. Mamba-1 (Jamba's
+mixer: a decay per (channel, state), a rank-``dt_rank`` dt projection,
+RMSNorms on dt, B and C) runs its selective scan as one hand-written
+kernel on the card (``kernels/csrc/selective_scan.cu``, forward only) and
+as the plain loop of ``kernels/ref.py`` on the CPU; its decode step is
+plain PyTorch. It has no mesh route.
 
 Under a mesh (``u`` a DTensor) the projections, the gated norms and the
 output projections run as DTensor ops, and the scans on each rank's local
@@ -38,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     _normal,
@@ -51,11 +58,19 @@ from repro_torch.models.layers import (
     split_heads,
     to_local,
 )
+from repro_torch.obs.trace import current
 
 Params = dict[str, Any]
 
+# Spans and counters of the Mamba-1 mixer on the current tracer
+# (repro_torch.obs.trace.current).
+MIXER = "mamba.mixer"
+SCAN = "mamba.scan"
+KERNEL_SCANS = "mamba.kernel_scans"  # scans through the CUDA kernel: host
+
 __all__ = [
     "init_ssd", "ssd_forward", "ssd_init_state", "ssd_decode_step",
+    "init_mamba1", "mamba1_forward", "mamba1_init_state", "mamba1_decode_step",
     "init_mlstm", "mlstm_forward", "mlstm_init_state", "mlstm_decode_step",
     "init_slstm", "slstm_forward", "slstm_init_state", "slstm_decode_step",
 ]
@@ -352,6 +367,125 @@ def _sharded_ssd_step(params: Params, cfg: ModelConfig, x, Bm, Cm, dt, state):
     new = {k: DTensor.from_local(v, mesh, st_pl[k], run_check=False).redistribute(
         mesh, state[k].placements) for k, v in new.items()}
     return DTensor.from_local(y[:, None], mesh, split, run_check=False), new
+
+
+# ==========================================================================
+# Mamba-1 (Jamba's mixer)
+# ==========================================================================
+
+def init_mamba1(gen: torch.Generator, cfg: ModelConfig, dtype=F32) -> Params:
+    """Mamba-1's weights as Jamba lays them out, at the port's scales
+    (1/sqrt(fan_in) normal draws, ones for the norms) and Mamba's own init
+    of the decay and step: ``A_log[c] = log(1..N)`` on every channel, ``D``
+    ones, and ``dt_bias`` the inverse softplus of a dt drawn log-uniform in
+    [1e-3, 1e-1]. ``conv_w[0]`` multiplies the newest sample."""
+    d, di, N, R, K = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim, cfg.dt_rank, cfg.ssm_conv_dim
+    dev = gen.device
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt0 = torch.exp(lo + (hi - lo) * torch.rand((di,), generator=gen, device=dev, dtype=F32))
+    return {
+        "in_proj": init_linear(gen, d, 2 * di, dtype=dtype),
+        "conv_w": _normal(gen, (K, di), 1.0 / math.sqrt(K), dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "x_proj": init_linear(gen, di, R + 2 * N, dtype=dtype),
+        "dt_norm": init_rms_norm(R, dev, dtype),
+        "b_norm": init_rms_norm(N, dev, dtype),
+        "c_norm": init_rms_norm(N, dev, dtype),
+        "dt_proj": init_linear(gen, R, di, dtype=dtype),
+        "dt_bias": (dt0 + torch.log(-torch.expm1(-dt0))).to(dtype),
+        "A_log": torch.log(torch.arange(1, N + 1, dtype=F32, device=dev)).expand(di, N)
+        .contiguous().to(dtype),
+        "D": torch.ones((di,), dtype=dtype, device=dev),
+        "out_proj": init_linear(gen, di, d, dtype=dtype),
+    }
+
+
+def _mamba1_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor, S: int) -> torch.Tensor:
+    """silu of the depthwise causal conv of the last ``S`` samples of ``xp``
+    [B, S + K - 1, di] (the K - 1 samples before the first, then the S),
+    summed in float32 from the newest tap (``w[0]``) to the oldest and
+    rounded once to ``xp``'s type."""
+    K = w.shape[0]
+    wf = w.to(F32)
+    acc = torch.addcmul(b.to(F32), xp[:, K - 1:], wf[0])
+    for k in range(1, K):
+        acc.addcmul_(xp[:, K - 1 - k: K - 1 - k + S], wf[k])
+    return F.silu(acc).to(xp.dtype)
+
+
+def _mamba1_inputs(p: Params, cfg: ModelConfig, xc: torch.Tensor):
+    """(dt before its bias, B, C) of the conv's output ``xc``: the x
+    projection split into dt's rank and the N of B and C, each under its
+    own RMSNorm, then dt's projection up to d_inner."""
+    R, N = cfg.dt_rank, cfg.ssm_state_dim
+    dbc = linear(p["x_proj"], xc)
+    dt_r = rms_norm(p["dt_norm"], dbc[..., :R], cfg.norm_eps)
+    Bm = rms_norm(p["b_norm"], dbc[..., R:R + N], cfg.norm_eps)
+    Cm = rms_norm(p["c_norm"], dbc[..., R + N:], cfg.norm_eps)
+    return linear(p["dt_proj"], dt_r), Bm, Cm
+
+
+def mamba1_forward(params: Params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
+    """Mamba-1's mixer over a whole sequence u [B, S, d] from a zero state:
+    ``x, z = in_proj(u)``, ``x = silu(conv(x))``, dt / B / C from ``x``,
+    the selective scan gated by ``silu(z)`` (one kernel on a card,
+    :func:`repro_torch.kernels.selective_scan.selective_scan`), then
+    ``out_proj``. Under the current tracer: the whole mixer is a MIXER
+    span, the scan a SCAN span, and each scan that took the kernel counts
+    under KERNEL_SCANS."""
+    if isinstance(u, DTensor):
+        raise NotImplementedError("Mamba-1 has no mesh route: its mixer and selective scan "
+                                  "run on one device's local tensors only")
+    tr = current()
+    with tr.span(MIXER):
+        di, S = cfg.d_inner, u.shape[1]
+        xz = linear(params["in_proj"], u)
+        z = xz[..., di:]
+        xp = F.pad(xz[..., :di], (0, 0, cfg.ssm_conv_dim - 1, 0))
+        x = _mamba1_conv(xp, params["conv_w"], params["conv_b"], S)
+        dt, Bm, Cm = _mamba1_inputs(params, cfg, x)
+        with tr.span(SCAN):
+            y = selective_scan(x, dt, z, Bm, Cm, params["A_log"], params["D"],
+                               params["dt_bias"])
+        if tr.enabled and x.is_cuda:
+            tr.count(KERNEL_SCANS, 1)
+        return linear(params["out_proj"], y)
+
+
+def mamba1_init_state(cfg: ModelConfig, batch: int, device=None) -> dict[str, torch.Tensor]:
+    """Zero decode state: the last K - 1 samples before the conv (float32,
+    which holds a bfloat16 or float32 sample exactly) and the scan's state
+    [B, d_inner, N] in float32."""
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv_dim - 1, cfg.d_inner), dtype=F32,
+                            device=device),
+        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state_dim), dtype=F32, device=device),
+    }
+
+
+def mamba1_decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    u: torch.Tensor,  # [B, 1, d_model]
+    state: dict[str, torch.Tensor],
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One token through Mamba-1's mixer: the step of
+    :func:`mamba1_forward`'s scan on the state, in float32, written out in
+    plain PyTorch. Returns (output [B, 1, d], the new state)."""
+    di = cfg.d_inner
+    xz = linear(params["in_proj"], u)
+    z = xz[:, 0, di:].to(F32)
+    xp = torch.cat([state["conv"].to(u.dtype), xz[..., :di]], dim=1)  # [B, K, di]
+    xc = _mamba1_conv(xp, params["conv_w"], params["conv_b"], 1)
+    dt, Bm, Cm = _mamba1_inputs(params, cfg, xc)
+    x = xc[:, 0].to(F32)
+    delta = F.softplus(dt[:, 0].to(F32) + params["dt_bias"].to(F32))  # [B, di]
+    A = -torch.exp(params["A_log"].to(F32))  # [di, N]
+    s = (torch.exp(delta[..., None] * A) * state["ssm"]
+         + (delta * x)[..., None] * Bm[:, 0, None, :].to(F32))
+    y = (s * Cm[:, 0, None, :].to(F32)).sum(dim=-1) + params["D"].to(F32) * x
+    y = (y * F.silu(z)).to(u.dtype)[:, None]
+    return linear(params["out_proj"], y), {"conv": xp[:, 1:].to(F32), "ssm": s}
 
 
 # ==========================================================================

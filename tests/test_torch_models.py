@@ -50,11 +50,23 @@ def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
 
+# The port's own ModelConfig fields (Jamba2-Mini's Mamba-1 and its
+# attention without RoPE) and the values that leave a model as the JAX
+# package's.
+PORT_ONLY = {"ssm_kind": "ssd", "ssm_dt_rank": 0, "rope": True}
+
+
 def test_config_registry_matches_reference():
+    """Every registered configuration, full and smoke, equals the JAX
+    package's field by field, and the port's own fields hold the values
+    that leave its model as the JAX package's."""
     assert ARCH_IDS == J_ARCH_IDS
     for name in ARCH_IDS + list(ALIASES):
-        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
-        assert dataclasses.asdict(smoke_config(name)) == dataclasses.asdict(j_smoke_config(name))
+        for ours, theirs in ((get_config(name), j_get_config(name)),
+                             (smoke_config(name), j_smoke_config(name))):
+            mine = dataclasses.asdict(ours)
+            assert {k: mine.pop(k) for k in PORT_ONLY} == PORT_ONLY
+            assert mine == dataclasses.asdict(theirs)
 
 
 # --------------------------------------------------------------------------
